@@ -1,0 +1,59 @@
+"""Turn the JAX package's data into the port's.
+
+The tests run both packages on the same inputs and from the same states.
+These functions read the JAX package's containers field by field through
+``numpy.asarray`` (which every JAX array supports), so the port still
+imports no JAX: ``problem``, ``scaled_problem`` and ``state`` take batched
+containers (a leading batch axis on every leaf, as ``jax.vmap`` produces
+them) and ``settings`` takes a ``qpdo_tpu.types.Settings``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .types import Problem, Scaling, ScaledProblem, Settings, SolverState
+
+
+def tensor(a, device=None) -> torch.Tensor:
+    """One array-like as a tensor (a copy, so it owns its memory)."""
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _fields(cls, src, device):
+    return cls(*[None if getattr(src, f) is None
+                 else tensor(getattr(src, f), device) for f in cls._fields])
+
+
+def problem(p, device=None) -> Problem:
+    """A batched ``qpdo_tpu.types.Problem`` as a port ``Problem``."""
+    return _fields(Problem, p, device)
+
+
+def scaled_problem(sp, device=None) -> ScaledProblem:
+    """A batched ``qpdo_tpu.types.ScaledProblem``."""
+    return ScaledProblem(
+        data=problem(sp.data, device),
+        scaling=_fields(Scaling, sp.scaling, device),
+        l_finite=tensor(sp.l_finite, device),
+        u_finite=tensor(sp.u_finite, device),
+        norm_q=tensor(sp.norm_q, device))
+
+
+def state(s, device=None) -> SolverState:
+    """A batched ``qpdo_tpu.types.SolverState``.  Its ``kkt_cache`` must be
+    None or one array (the ns inverse); the incremental-KKT tuple cache is
+    not ported."""
+    if isinstance(s.kkt_cache, tuple):
+        raise NotImplementedError("the incremental-KKT cache "
+                                  "(Settings.kkt_update_rows) is not ported")
+    return _fields(SolverState, s, device)
+
+
+def settings(s) -> Settings:
+    """A ``qpdo_tpu.types.Settings`` (or any object with the same fields)."""
+    return Settings(**{f.name: getattr(s, f.name)
+                       for f in dataclasses.fields(Settings)})

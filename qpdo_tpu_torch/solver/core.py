@@ -1,0 +1,585 @@
+"""Core QPDO iteration, batched: the primal-dual Newton proximal method as
+one masked step over a whole batch of problems.
+
+Port of ``qpdo_tpu/solver/core.py``.  The JAX package writes the step for
+one problem and vmaps it; here every function takes the batch, per-problem
+scalars are (B,) tensors, and every reduction runs over one problem's
+entries.  The step computes the Newton branch and the outer-update branch
+for every problem and combines them with per-problem masks; a problem
+whose status has latched is frozen exactly, so extra steps change nothing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import torch
+
+from .. import constants as _c
+from ..operators import DenseOperator
+from ..ops.batched import bwhere, dot, norm_inf
+from ..ops.fused_residuals import fused_residuals
+from ..ops.linalg import resolve_dtype
+from ..ops.linesearch import exact_linesearch
+from ..types import Info, Result, ScaledProblem, Settings, SolverState
+
+
+def as_operator(sp_or_op):
+    """Accept a ScaledProblem (wrapped in a DenseOperator) or an operator."""
+    if isinstance(sp_or_op, ScaledProblem):
+        return DenseOperator(sp_or_op)
+    return sp_or_op
+
+
+@contextlib.contextmanager
+def matmul_precision(name: str):
+    """PyTorch's counterpart of ``jax.default_matmul_precision``: "highest"
+    (or "float32") runs float32 matmuls in full float32, with TF32 off for
+    both cuBLAS and cuDNN; "tensorfloat32" (or "high") allows TF32.  The
+    previous switches are restored on exit."""
+    allow = {"highest": False, "float32": False,
+             "tensorfloat32": True, "high": True}
+    if name not in allow:
+        raise NotImplementedError(f"matmul precision {name!r}: the port has "
+                                  "'highest' and 'tensorfloat32'")
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allow[name]
+    torch.backends.cudnn.allow_tf32 = allow[name]
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def _with_matmul_precision(fn):
+    """Run the wrapped (op, settings, ...) function under
+    settings.matmul_precision (core.py:52-63)."""
+    @functools.wraps(fn)
+    def wrapped(op, settings, *args, **kwargs):
+        with matmul_precision(settings.matmul_precision):
+            return fn(op, settings, *args, **kwargs)
+    return wrapped
+
+
+def _scalar(op, value, dtype=None):
+    """A (B,) tensor filled with ``value`` in the operator's dtype."""
+    B = op.sp.data.q.shape[0]
+    return torch.full((B,), value, dtype=dtype or op.dtype, device=op.device)
+
+
+def mixed_mode(settings: Settings, dt: torch.dtype) -> bool:
+    """The anchored mixed-GEMM phase: A-GEMMs in a dtype below the state's."""
+    return (settings.phase2_gemm_dtype is not None
+            and resolve_dtype(settings.phase2_gemm_dtype, dt) != dt)
+
+
+# ---------------------------------------------------------------------------
+# State initialization (qpdo_warm_start, qpdo.c:217-299), cold start only
+# ---------------------------------------------------------------------------
+
+@_with_matmul_precision
+def init_state(op, settings: Settings) -> SolverState:
+    op = as_operator(op)
+    dt = op.dtype
+    sigma = _scalar(op, settings.sigma_init)
+    x = op.zeros_primal()
+    Qx = op.zeros_primal()
+    Ax = op.zeros_dual()
+    y = op.zeros_dual()
+    Aty = op.zeros_primal()
+
+    # initialize_mu: Birgin-Martinez balancing (iteration.c:98-109)
+    Qx_eff = Qx + sigma[:, None] * x if settings.proximal else Qx
+    f = 0.5 * dot(x, Qx_eff) + dot(op.q, x)
+    fmax = torch.clamp(torch.abs(f), min=1.0)
+    mu = torch.clamp(
+        0.1 * torch.clamp(0.5 * torch.square(Ax - torch.clamp(Ax, op.l, op.u)),
+                          min=1.0) / fmax[:, None], 1e-3, 1e3)
+
+    zero = _scalar(op, 0.0)
+    i0 = _scalar(op, 0, torch.int32)
+    kkt_cache = None
+    if settings.kkt_update_rows > 0 or settings.kkt_solver in ("inv", "ns"):
+        # initial cache from the init-state active set (ybar = y)
+        w0 = Ax + 0.5 * mu * y
+        active0 = ((w0 <= op.l) | (w0 >= op.u)).to(dt)
+        kkt_cache = op.kkt_cache_init(active0, mu, settings, sigma=sigma)
+    return SolverState(
+        x=x, y=y, Qx=Qx, Ax=Ax, Aty=Aty, dx_prev=op.zeros_primal(),
+        xbar=x, ybar=y, mu=mu,
+        sigma=sigma, eps_in=_scalar(op, settings.eps_abs_in),
+        res_prim_old=op.zeros_dual(), tau=zero,
+        iter=i0, iter_old=i0, oter=i0,
+        status=_scalar(op, _c.UNSOLVED, torch.int32),
+        res_prim_norm=zero, res_dual_norm=zero,
+        res_prim_in_norm=zero, res_dual_in_norm=zero,
+        kkt_cache=kkt_cache, warmup_iter=i0)
+
+
+# ---------------------------------------------------------------------------
+# One masked solver step (the body of the main loop, qpdo.c:343-449)
+# ---------------------------------------------------------------------------
+
+def outer_residuals(op, y, Qx, Ax, Aty):
+    """Outer residual vectors and unscaled norms (iteration.c:30-60)."""
+    cinv = op.cinv[:, None]
+    res_prim = Ax - torch.clamp(Ax + (op.E * op.E * cinv) * y, op.l, op.u)
+    res_dual = Qx + op.q + Aty
+    rp = norm_inf(op.Einv * res_prim)
+    rd = norm_inf(op.Dinv * res_dual) * op.cinv
+    return res_prim, res_dual, rp, rd
+
+
+@_with_matmul_precision
+def step(op, settings: Settings, s: SolverState) -> SolverState:
+    op = as_operator(op)
+    dt = op.dtype
+    one = torch.ones((), dtype=dt, device=op.device)
+    eps_abs = torch.full((), settings.eps_abs, dtype=dt, device=op.device)
+    cinv = op.cinv
+    cost = op.cost
+    sigma = s.sigma
+    col = lambda v: v[:, None]
+
+    if settings.accel_gamma > 0:
+        raise NotImplementedError("Settings.accel_gamma is not ported yet")
+    if settings.fused_newton_rhs:
+        raise NotImplementedError("Settings.fused_newton_rhs is not ported yet")
+
+    # The whole residual block in one launch (ops/fused_residuals.py; the
+    # kernel on a CUDA tensor whatever the flag, see types.py).
+    sig_eff = sigma if settings.proximal else torch.zeros_like(sigma)
+    (res_prim, res_prim_in, w, active, res_dual_in,
+     res_prim_norm, res_dual_norm, res_prim_in_norm,
+     res_dual_in_norm) = fused_residuals(
+         s.Ax, s.y, s.mu, s.ybar, op.l, op.u, op.E, op.Einv,
+         s.Qx, op.q, s.Aty, s.x, s.xbar, op.Dinv, sig_eff, cinv)
+    if settings.pallas_residuals:
+        # the fused branch of core.py:205-207: df recovered from the kernel
+        df = res_dual_in - s.Aty
+    elif settings.proximal:
+        df = s.Qx + op.q + col(sigma) * (s.x - s.xbar)
+    else:
+        df = s.Qx + op.q
+
+    # ---- outer optimality / divergence (termination.c:11-23) ----
+    infty = torch.full((), _c.QPDO_INFTY, dtype=dt, device=op.device)
+    mixed = mixed_mode(settings, dt)
+    eps_latch = eps_abs * 0.9 if mixed else eps_abs
+    diverged = (res_prim_norm > infty) | (res_dual_norm > infty)
+    solved = (res_prim_norm <= eps_latch) & (res_dual_norm <= eps_latch)
+    status_opt = torch.where(
+        diverged, _c.NON_CVX,
+        torch.where(solved, _c.SOLVED, _c.UNSOLVED)).to(torch.int32)
+    running = status_opt == _c.UNSOLVED
+
+    # ---- subproblem transition test (qpdo.c:365) ----
+    inner_opt = (res_prim_in_norm <= s.eps_in) & (res_dual_in_norm <= s.eps_in)
+    inner_cap = s.iter == s.iter_old + settings.inner_max_iter
+    sub_done = ((s.iter > s.iter_old + 1) & inner_opt) | inner_cap
+    can_check = s.iter < s.iter_old + settings.inner_max_iter
+
+    # =======================================================================
+    # Branch A: Newton step
+    # =======================================================================
+    # rhs: ytilde = (I+P) res_prim_in / mu, rhs = -(res_dual_in + A' ytilde)
+    ytilde = (res_prim_in / s.mu) * (2.0 - active)
+
+    check_inf = settings.eps_prim_inf > 0 or settings.eps_dual_inf > 0
+    dy_c = s.y - s.ybar  # primal certificate direction
+    dx_c = s.x - s.xbar  # dual certificate direction
+
+    # reduced-precision cache-feeding matvecs (Qdx, A'ytilde) run in the
+    # KKT dtype: the dense operator re-anchors them (core.py:280-287)
+    ckdt = resolve_dtype(settings.kkt_dtype, dt)
+    pdt = resolve_dtype(settings.phase2_gemm_dtype, dt) if mixed else None
+    cert_dt = settings.cert_dtype or settings.phase2_gemm_dtype
+    cdt = resolve_dtype(cert_dt, dt)
+    split_certs = check_inf and cdt != dt
+
+    At_ytilde = op.Atmv(ytilde, dtype=ckdt)
+    rhs = -(res_dual_in + At_ytilde)
+    if s.kkt_cache is not None:
+        dx, kkt_cache_new = op.newton_solve_cached(
+            active, s.mu, sigma, rhs, settings, s.kkt_cache,
+            dx_prev=s.dx_prev, tol_hint=s.eps_in)
+    else:
+        dx = op.newton_solve(active, s.mu, sigma, rhs, settings,
+                             dx_prev=s.dx_prev, tol_hint=s.eps_in)
+        kkt_cache_new = s.kkt_cache
+    Qdx_c = Adx_c_raw = Atdy_c_raw = None
+    if mixed:
+        Qdx_pure = op.Qmv(dx, dtype=ckdt)
+        Adx = op.Amv_mixed(dx, s.mu, settings.hard_rows, pdt)
+        if check_inf:
+            Adx_c_raw = op.Amv(dx_c, dtype=cdt)
+            Qdx_c = op.Qmv(dx_c, dtype=cdt)
+    elif split_certs:
+        Qdx_pure = op.Qmv(dx, dtype=ckdt)
+        Adx = op.Amv(dx)
+        Adx_c_raw = op.Amv(dx_c, dtype=cdt)
+        Qdx_c = op.Qmv(dx_c, dtype=cdt)
+    elif check_inf:
+        if ckdt == dt:
+            Qdx_pure, Qdx_c, Adx, Adx_c_raw = op.QAmv2(dx, dx_c)
+        else:
+            Qdx_pure = op.Qmv(dx, dtype=ckdt)
+            Qdx_c = op.Qmv(dx_c)
+            Adx, Adx_c_raw = op.Amv2(dx, dx_c)
+    else:
+        Qdx_pure = op.Qmv(dx, dtype=ckdt)
+        Adx = op.Amv(dx)
+    Qdx = Qdx_pure + col(sigma) * dx if settings.proximal else Qdx_pure
+    dy = ytilde + active * (Adx / s.mu)                       # newton.c:60-63
+    if mixed:
+        Atdy = op.Atmv_mixed(dy, s.mu, settings.hard_rows, pdt)
+        if check_inf:
+            Atdy_c_raw = op.Atmv(dy_c, dtype=cdt)
+    elif split_certs:
+        Atdy = op.Atmv(dy)
+        Atdy_c_raw = op.Atmv(dy_c, dtype=cdt)
+    elif check_inf:
+        Atdy, Atdy_c_raw = op.Atmv2(dy, dy_c)
+    else:
+        Atdy = op.Atmv(dy)
+    tau = exact_linesearch(dx, dy, Qdx, Adx, df, s.y, w, s.mu, op.l, op.u,
+                           settings.linesearch, settings.linesearch_dtype)
+    if settings.newton_full_step and op.newton_exact(settings):
+        # full-step acceptance from the cache increments alone
+        Ax_t = s.Ax + Adx
+        y_t = s.y + dy
+        w_t = Ax_t + s.mu * (s.ybar - 0.5 * y_t)
+        rpi_t = Ax_t + s.mu * (s.ybar - y_t) - torch.clamp(w_t, op.l, op.u)
+        Qx_t = s.Qx + Qdx_pure
+        if settings.proximal:
+            df_t = Qx_t + op.q + col(sigma) * ((s.x + dx) - s.xbar)
+        else:
+            df_t = Qx_t + op.q
+        rdi_t = df_t + (s.Aty + Atdy)
+        rpi_t_norm = norm_inf(op.Einv * rpi_t)
+        rdi_t_norm = norm_inf(op.Dinv * rdi_t) * cinv
+        cur = torch.maximum(res_prim_in_norm, res_dual_in_norm)
+        trial = torch.maximum(rpi_t_norm, rdi_t_norm)
+        take_full = (trial <= settings.full_step_gamma * cur) & (tau < one)
+        tau = torch.where(take_full, one, tau)
+    # iterate + cache updates (iteration.c:19-24)
+    t = col(tau)
+    x_nwt = s.x + t * dx
+    y_nwt = s.y + t * dy
+    Qx_nwt = s.Qx + t * Qdx_pure
+    Ax_nwt = s.Ax + t * Adx
+    Aty_nwt = s.Aty + t * Atdy
+
+    # =======================================================================
+    # Branch B: subproblem boundary: infeasibility checks + prox update
+    # =======================================================================
+    if check_inf:
+        # primal infeasibility via dy = y - ybar (termination.c:97-151)
+        norm_Edy = norm_inf(op.E * dy_c)
+        Atdy_c_norm = norm_inf(op.Dinv * Atdy_c_raw)
+        oob = torch.sum(op.u * torch.clamp(dy_c, min=0.0) * op.u_finite
+                        + op.l * torch.clamp(dy_c, max=0.0) * op.l_finite,
+                        dim=-1)
+        eps_pinf = settings.eps_prim_inf
+        prim_inf = ((norm_Edy > 0)
+                    & (Atdy_c_norm <= eps_pinf * norm_Edy)
+                    & (oob <= -eps_pinf * norm_Edy))
+        prim_inf &= can_check & (settings.eps_prim_inf > 0)
+
+        # dual infeasibility via dx = x - xbar (termination.c:156-216)
+        norm_Ddx = norm_inf(op.D * dx_c)
+        thr = settings.eps_dual_inf * norm_Ddx
+        scaled = op.Einv * Adx_c_raw
+        rows_bad = ((op.u_finite * (scaled >= col(thr)) > 0)
+                    | (op.l_finite * (scaled <= -col(thr)) > 0)).any(dim=-1)
+        if settings.proximal:
+            # quirk preserved from termination.c:200-202: - sigma*tau*dx
+            Qdx_c = Qdx_c - col(sigma * s.tau) * dx_c
+        dual_inf = ((norm_Ddx > 0) & ~rows_bad
+                    & (norm_inf(Qdx_c) <= cost * thr)
+                    & (dot(op.q, dx_c) <= -cost * thr))
+        dual_inf &= can_check & (settings.eps_dual_inf > 0) & ~prim_inf
+    else:
+        prim_inf = torch.zeros_like(running)
+        dual_inf = torch.zeros_like(running)
+
+    # mu update (iteration.c:127-168), gated on oter > 0 and the outer
+    # primal residual still above tolerance (qpdo.c:400-402)
+    res_norm_scaled = norm_inf(res_prim)
+    do_mu = (s.oter > 0) & (res_prim_norm > eps_abs)
+    abs_rp = torch.abs(res_prim)
+    cond = abs_rp > torch.maximum(eps_abs, settings.theta
+                                  * torch.abs(s.res_prim_old))
+    safe_rp = torch.where(cond, abs_rp, one)
+    factor = one / torch.clamp(settings.delta * col(res_norm_scaled) / safe_rp,
+                               max=1.0)
+    shrunk = torch.clamp(s.mu / factor, min=settings.mu_min)
+    mu_out = torch.where(col(do_mu) & cond, shrunk, s.mu)
+
+    # sigma update (iteration.c:173-180), gated at qpdo.c:403-405
+    do_sigma = (s.oter > 0) & (res_dual_norm > eps_abs) & settings.proximal
+    sigma_shrunk = torch.clamp(sigma * settings.sigma_upd,
+                               min=settings.sigma_min)
+    sigma_out = torch.where(do_sigma & (sigma > settings.sigma_min),
+                            sigma_shrunk, sigma)
+
+    # inner tolerance shrink, only when the subproblem converged before the
+    # iteration cap (qpdo.c:407-410)
+    eps_in_out = torch.where(
+        can_check, torch.maximum(settings.rho * s.eps_in, 0.1 * eps_abs),
+        s.eps_in)
+
+    # ---- warmup stall guard (phase 1 only; Settings.warmup_stall_exit) ----
+    if settings.stall_exit > 0:
+        prev_rp_norm = norm_inf(op.Einv * s.res_prim_old)
+        warmup_stalled = ((s.oter >= 2)
+                          & (res_prim_norm > settings.stall_exit * prev_rp_norm)
+                          & (res_prim_norm > eps_abs))
+    else:
+        warmup_stalled = torch.zeros_like(running)
+
+    # =======================================================================
+    # Combine branches with masks
+    # =======================================================================
+    infeasible = prim_inf | dual_inf
+    apply_newton = running & ~sub_done
+    apply_outer = running & sub_done & ~infeasible & ~warmup_stalled
+    advance = apply_newton | apply_outer       # no break this iteration
+
+    unsolved = torch.full_like(status_opt, _c.UNSOLVED)
+    status_next = torch.where(
+        running,
+        torch.where(sub_done & prim_inf, _c.PRIMAL_INFEASIBLE,
+                    torch.where(sub_done & dual_inf, _c.DUAL_INFEASIBLE,
+                                torch.where(sub_done & warmup_stalled,
+                                            _c.WARMUP_STALLED, unsolved))),
+        status_opt).to(torch.int32)
+
+    def pick(newton_val, outer_val, old):
+        return bwhere(apply_newton, newton_val,
+                      bwhere(apply_outer, outer_val, old))
+
+    return SolverState(
+        x=pick(x_nwt, s.x, s.x),
+        y=pick(y_nwt, s.y, s.y),
+        Qx=pick(Qx_nwt, s.Qx, s.Qx),
+        Ax=pick(Ax_nwt, s.Ax, s.Ax),
+        Aty=pick(Aty_nwt, s.Aty, s.Aty),
+        dx_prev=pick(dx, s.dx_prev, s.dx_prev),
+        xbar=pick(s.xbar, s.x, s.xbar),  # prox center (qpdo.c:396)
+        ybar=pick(s.ybar, s.y, s.ybar),
+        mu=pick(s.mu, mu_out, s.mu),
+        sigma=pick(s.sigma, sigma_out, s.sigma),
+        eps_in=pick(s.eps_in, eps_in_out, s.eps_in),
+        res_prim_old=pick(s.res_prim_old, res_prim, s.res_prim_old),
+        tau=torch.where(apply_newton, tau, s.tau),
+        iter=torch.where(advance, s.iter + 1, s.iter),
+        iter_old=pick(s.iter_old, s.iter, s.iter_old),
+        oter=pick(s.oter, s.oter + 1, s.oter),
+        status=status_next,
+        res_prim_norm=res_prim_norm,
+        res_dual_norm=res_dual_norm,
+        res_prim_in_norm=res_prim_in_norm,
+        res_dual_in_norm=res_dual_in_norm,
+        # the cache advances only on Newton steps
+        kkt_cache=(None if s.kkt_cache is None else
+                   pick(kkt_cache_new, s.kkt_cache, s.kkt_cache)),
+        warmup_iter=s.warmup_iter,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Full solve on scaled data
+# ---------------------------------------------------------------------------
+
+def objective_value(op, x, Qx):
+    """0.5 x'Qx + q'x, unscaled (compute_objective, iteration.c:185-221)."""
+    op = as_operator(op)
+    obj = 0.5 * dot(x, Qx) + dot(op.q, x)
+    return obj * op.cinv + op.c
+
+
+def rebuild_kkt_cache(op, settings: Settings, s: SolverState) -> SolverState:
+    """Exact rebuild of the carried KKT cache from the current state."""
+    op = as_operator(op)
+    if settings.kkt_update_rows <= 0 and settings.kkt_solver not in ("inv", "ns"):
+        return s
+    if (settings.kkt_solver in ("inv", "ns")
+            and settings.kkt_update_rows <= 0
+            and not settings.kkt_inv_refresh):
+        return s  # init-only inverse: NS tracking carries X
+    w = s.Ax + s.mu * (s.ybar - 0.5 * s.y)
+    active = ((w <= op.l) | (w >= op.u)).to(op.dtype)
+    return s._replace(kkt_cache=op.kkt_cache_init(active, s.mu, settings,
+                                                  sigma=s.sigma))
+
+
+def reanchor(op, settings: Settings, s: SolverState) -> SolverState:
+    """Recompute the Qx/Ax/Aty caches with exact state-dtype matvecs (the
+    anchor of the mixed-GEMM phase 2), then rebuild the KKT cache."""
+    op = as_operator(op)
+    s = s._replace(Qx=op.Qmv(s.x), Ax=op.Amv(s.x), Aty=op.Atmv(s.y))
+    return rebuild_kkt_cache(op, settings, s)
+
+
+def masked(new: SolverState, old: SolverState, mask) -> SolverState:
+    """Per problem: ``new`` where ``mask`` (B,) holds, else ``old``."""
+    return SolverState(*[
+        None if a is None else bwhere(mask, a, b) for a, b in zip(new, old)])
+
+
+def _loop_active(s: SolverState, iter_cap):
+    return (s.status == _c.UNSOLVED) & (s.iter < iter_cap)
+
+
+@_with_matmul_precision
+def run_loop(op, settings: Settings, s: SolverState,
+             iter_cap: int) -> SolverState:
+    """Iterate every problem until its status latches or its ``iter``
+    reaches ``iter_cap`` (qpdo.c:343-449).
+
+    ``lax.while_loop`` becomes a Python loop of masked steps with one host
+    check of "any problem still active" every ``anchor_every`` steps; a
+    masked step leaves finished problems untouched.  In mixed-GEMM mode
+    (and whenever a KKT cache is carried) the loop nests like the JAX one
+    run per problem: each problem runs to its own chunk end
+    min(iter + anchor_every, iter_cap), then the chunk's refresh is kept
+    for the problems that were active when the chunk began.  A chunk takes
+    at most anchor_every masked steps, since each step advances iter or
+    latches the status."""
+    op = as_operator(op)
+    mixed = mixed_mode(settings, op.dtype)
+    K = settings.anchor_every
+    if not mixed and s.kkt_cache is None:
+        while bool(_loop_active(s, iter_cap).any()):
+            for _ in range(K):
+                s = masked(step(op, settings, s), s, _loop_active(s, iter_cap))
+        return s
+
+    refresh = reanchor if mixed else rebuild_kkt_cache
+    while True:
+        began = _loop_active(s, iter_cap)
+        if not bool(began.any()):
+            return s
+        end = torch.clamp(s.iter + K, max=iter_cap)
+        for _ in range(K):
+            s = masked(step(op, settings, s), s, _loop_active(s, end))
+        s = masked(refresh(op, settings, s), s, began)
+
+
+@_with_matmul_precision
+def finalize(op, settings: Settings, s: SolverState,
+             unsolved_status: int = _c.MAX_ITER_REACHED) -> Result:
+    """Unscale the solution and certificates and assemble Info
+    (store_solution, termination.c:82-92; exit path qpdo.c:451-473)."""
+    op = as_operator(op)
+    status = torch.where(s.status == _c.UNSOLVED,
+                         torch.full_like(s.status, unsolved_status),
+                         s.status).to(torch.int32)
+    cinv = op.cinv[:, None]
+    x_out = op.D * s.x
+    y_out = cinv * (op.E * s.y)
+    dy_cert = cinv * (op.E * (s.y - s.ybar))
+    dx_cert = op.D * (s.x - s.xbar)
+
+    # NaN-filling per the MEX output contract (qpdo_mex.c:247-279)
+    is_pinf = status == _c.PRIMAL_INFEASIBLE
+    is_dinf = status == _c.DUAL_INFEASIBLE
+    any_inf = is_pinf | is_dinf
+    nan = lambda v: torch.full_like(v, float("nan"))
+    x_out = bwhere(any_inf, nan(x_out), x_out)
+    y_out = bwhere(any_inf, nan(y_out), y_out)
+    dy_cert = bwhere(is_pinf, dy_cert, nan(dy_cert))
+    dx_cert = bwhere(is_dinf, dx_cert, nan(dx_cert))
+
+    zero = torch.zeros_like(s.sigma)
+    info = Info(
+        iterations=s.iter, oterations=s.oter, status_val=status,
+        res_prim_norm=s.res_prim_norm, res_dual_norm=s.res_dual_norm,
+        res_prim_in_norm=s.res_prim_in_norm,
+        res_dual_in_norm=s.res_dual_in_norm,
+        objective=objective_value(op, s.x, s.Qx),
+        setup_time=zero, solve_time=zero, run_time=zero,
+        warmup_iterations=(s.warmup_iter if s.warmup_iter is not None
+                           else torch.zeros_like(s.iter)))
+    return Result(x=x_out, y=y_out, prim_inf_cert=dy_cert,
+                  dual_inf_cert=dx_cert, info=info)
+
+
+def polish_state(op, settings: Settings, s: SolverState) -> SolverState:
+    """The solution polish: not ported yet, so it passes through when
+    ``polish`` is off and raises otherwise."""
+    if settings.polish:
+        raise NotImplementedError("Settings.polish is not ported yet")
+    return s
+
+
+def warmup_settings(settings: Settings) -> Settings:
+    """Phase-1 settings of the hybrid solve: float32-safe tolerances, no
+    infeasibility checks, the stall guard on (core.py:741-757)."""
+    return settings.replace(
+        eps_abs=settings.warmup_eps,
+        mu_min=max(settings.mu_min, settings.warmup_mu_min),
+        eps_prim_inf=0.0, eps_dual_inf=0.0,
+        kkt_dtype=None, refine_steps=settings.warmup_refine_steps,
+        hybrid_warmup=False,
+        matmul_precision=settings.warmup_matmul_precision,
+        stall_exit=settings.warmup_stall_exit)
+
+
+def warmup_iter_cap(settings: Settings) -> int:
+    """At least half the iteration budget stays with the accurate phase."""
+    return max(1, settings.max_iter // 2)
+
+
+@_with_matmul_precision
+def upcast_state(op, settings: Settings, s: SolverState) -> SolverState:
+    """Upcast a phase-1 state: exact caches in the target dtype, and a
+    phase-1 SOLVED or WARMUP_STALLED reset to UNSOLVED.
+
+    Like core.py:800-813, the new state is built without the KKT cache and
+    ``rebuild_kkt_cache`` then returns early for an init-only ns inverse,
+    so phase 2 of the bench configuration starts with no cache and runs
+    the chol Newton solve (``newton_solve``), not the ns one."""
+    op = as_operator(op)
+    dt = op.dtype
+    up = lambda a: a.to(dt)
+    x, y = up(s.x), up(s.y)
+    status = torch.where((s.status == _c.SOLVED)
+                         | (s.status == _c.WARMUP_STALLED),
+                         torch.full_like(s.status, _c.UNSOLVED), s.status)
+    out = SolverState(
+        x=x, y=y, Qx=op.Qmv(x), Ax=op.Amv(x), Aty=op.Atmv(y),
+        dx_prev=up(s.dx_prev), xbar=up(s.xbar), ybar=up(s.ybar),
+        mu=up(s.mu), sigma=up(s.sigma),
+        eps_in=up(s.eps_in), res_prim_old=up(s.res_prim_old), tau=up(s.tau),
+        iter=s.iter, iter_old=s.iter_old, oter=s.oter,
+        status=status.to(torch.int32),
+        res_prim_norm=up(s.res_prim_norm), res_dual_norm=up(s.res_dual_norm),
+        res_prim_in_norm=up(s.res_prim_in_norm),
+        res_dual_in_norm=up(s.res_dual_in_norm),
+        warmup_iter=s.iter)  # phase boundary: everything so far was phase 1
+    if s.kkt_cache is not None:
+        out = rebuild_kkt_cache(op, settings, out)
+    return out
+
+
+@_with_matmul_precision
+def solve_scaled(op, settings: Settings) -> Result:
+    """Run the main loop on scaled data (cold start) and unscale the
+    outputs; the batch runs in lock step without compaction."""
+    op = as_operator(op)
+    if settings.hybrid_warmup and op.dtype != torch.float32:
+        stg1 = warmup_settings(settings)
+        op32 = op.cast(torch.float32)
+        s = init_state(op32, stg1)
+        s = run_loop(op32, stg1, s, warmup_iter_cap(settings))
+        s0 = polish_state(op, settings, upcast_state(op, settings, s))
+    else:
+        s0 = init_state(op, settings)
+    s = run_loop(op, settings, s0, settings.max_iter)
+    s = polish_state(op, settings, s)
+    return finalize(op, settings, s)
