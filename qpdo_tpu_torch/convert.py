@@ -5,7 +5,8 @@ These functions read the JAX package's containers field by field through
 ``numpy.asarray`` (which every JAX array supports), so the port still
 imports no JAX: ``problem``, ``scaled_problem`` and ``state`` take batched
 containers (a leading batch axis on every leaf, as ``jax.vmap`` produces
-them) and ``settings`` takes a ``qpdo_tpu.types.Settings``.
+them) and ``settings`` takes a ``qpdo_tpu.types.Settings``.  Every function
+that makes tensors takes the device to put them on; none has a default.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from .types import Problem, Scaling, ScaledProblem, Settings, SolverState
 
 
-def tensor(a, device=None) -> torch.Tensor:
+def tensor(a, device) -> torch.Tensor:
     """One array-like as a tensor (a copy, so it owns its memory)."""
     return torch.from_numpy(np.array(a)).to(device)
 
@@ -28,12 +29,12 @@ def _fields(cls, src, device):
                  else tensor(getattr(src, f), device) for f in cls._fields])
 
 
-def problem(p, device=None) -> Problem:
+def problem(p, device) -> Problem:
     """A batched ``qpdo_tpu.types.Problem`` as a port ``Problem``."""
     return _fields(Problem, p, device)
 
 
-def scaled_problem(sp, device=None) -> ScaledProblem:
+def scaled_problem(sp, device) -> ScaledProblem:
     """A batched ``qpdo_tpu.types.ScaledProblem``."""
     return ScaledProblem(
         data=problem(sp.data, device),
@@ -43,7 +44,7 @@ def scaled_problem(sp, device=None) -> ScaledProblem:
         norm_q=tensor(sp.norm_q, device))
 
 
-def state(s, device=None) -> SolverState:
+def state(s, device) -> SolverState:
     """A batched ``qpdo_tpu.types.SolverState``.  Its ``kkt_cache`` must be
     None or one array (the ns inverse); the incremental-KKT tuple cache is
     not ported."""

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``qpdo_tpu_torch/csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into one shared library with a
+The sources are compiled with ``nvcc`` (one compiler process per source,
+all started together, then one link) into one shared library with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  The build runs at the first launch, never at
 import: it needs ``nvcc`` and an sm_90a device (NVIDIA Hopper).  The
@@ -30,13 +31,19 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("formation.cu", "residuals.cu")
+SOURCES = ("formation.cu", "residuals.cu", "kkt_solve.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# pointer arguments of each entry point; then come B, m, n and the stream
-_POINTERS = {"formation": 5, "residuals": 22}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# entry point qpdo_<name>_<suffix>: (pointer arguments, int arguments,
+# dtypes it exists for); the stream comes last
+_KERNELS = {
+    "formation": (5, 3, (torch.float32, torch.float64)),    # B, m, n
+    "residuals": (22, 3, (torch.float32, torch.float64)),   # B, m, n
+    "kkt_solve": (6, 3, (torch.float32,)),                  # B, m, n
+    "chol_solve": (3, 2, (torch.float32,)),                 # B, n
+}
 # the CUDA toolkit's default install prefix
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -68,6 +75,36 @@ def find_nvcc() -> str:
         f"from {CSRC} at first use and need the CUDA toolkit")
 
 
+def _build(nvcc: str, sources, out: Path) -> None:
+    """Compile every source to an object, all compilers started together,
+    then link the objects into ``out``; the log goes beside it."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objects = [str(Path(tmp) / (p.stem + ".o")) for p in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                for p, o in zip(sources, objects)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        runs = []                      # (command, exit code, output)
+        for cmd, proc in zip(cmds, procs):
+            stdout, stderr = proc.communicate()
+            runs.append((cmd, proc.returncode, stdout + stderr))
+        lib_tmp = str(Path(tmp) / out.name)
+        if all(rc == 0 for _, rc, _ in runs):
+            link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib_tmp, *objects]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            runs.append((link, proc.returncode, proc.stdout + proc.stderr))
+        Path(str(out) + ".log").write_text(
+            "".join(" ".join(cmd) + "\n" + text for cmd, _, text in runs))
+        failed = [(cmd, rc, text) for cmd, rc, text in runs if rc != 0]
+        if failed:
+            raise KernelError("\n".join(
+                f"nvcc failed with exit code {rc}: {' '.join(cmd)}\n"
+                + text[-4000:] for cmd, rc, text in failed))
+        os.replace(lib_tmp, out)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (once per source version) and load the kernel library."""
@@ -79,28 +116,21 @@ def library() -> ctypes.CDLL:
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = build_dir() / f"libqpdo_kernels_{digest.hexdigest()[:16]}.so"
     if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        Path(str(out) + ".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise KernelError(f"nvcc failed with exit code {proc.returncode}:\n"
-                              + proc.stderr[-4000:])
-        os.replace(tmp, out)
+        _build(nvcc, sources, out)
     try:
         lib = ctypes.CDLL(str(out))
     except OSError as e:
         raise KernelError(f"cannot load {out}: {e}") from e
-    for name in _POINTERS:
-        for suffix in _SUFFIX.values():
-            fn = getattr(lib, f"qpdo_{name}_{suffix}")
-            fn.argtypes = ([ctypes.c_void_p] * _POINTERS[name]
-                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    for name, (pointers, ints, dtypes) in _KERNELS.items():
+        for dtype in dtypes:
+            fn = getattr(lib, f"qpdo_{name}_{_SUFFIX[dtype]}")
+            fn.argtypes = ([ctypes.c_void_p] * pointers
+                           + [ctypes.c_int] * ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+    for name in ("kkt_solve", "chol_solve"):
+        fn = getattr(lib, f"qpdo_{name}_max_n")
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     lib.qpdo_error_string.argtypes = [ctypes.c_int]
     lib.qpdo_error_string.restype = ctypes.c_char_p
     return lib
@@ -109,15 +139,25 @@ def library() -> ctypes.CDLL:
 def launch(name: str, dtype: torch.dtype, device: torch.device,
            tensors, sizes) -> None:
     """Launch kernel ``name`` for ``dtype`` on the current stream of
-    ``device``: ``tensors`` become pointers, ``sizes`` (B, m, n) C ints."""
-    suffix = _SUFFIX.get(dtype)
-    if suffix is None:
+    ``device``: ``tensors`` become pointers, ``sizes`` (B, m, n; B, n for
+    chol_solve) C ints."""
+    pointers, ints, dtypes = _KERNELS[name]
+    if dtype not in dtypes:
         raise KernelError(f"{name}: no kernel for dtype {dtype}")
+    if len(tensors) != pointers or len(sizes) != ints:
+        raise KernelError(f"{name}: takes {pointers} tensors and {ints} sizes,"
+                          f" got {len(tensors)} and {len(sizes)}")
     lib = library()
-    fn = getattr(lib, f"qpdo_{name}_{suffix}")
+    fn = getattr(lib, f"qpdo_{name}_{_SUFFIX[dtype]}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*[t.data_ptr() for t in tensors], *sizes, stream)
     if err != 0:
         raise KernelError(f"{name} kernel launch failed: CUDA error {err} "
                           f"({lib.qpdo_error_string(err).decode()})")
+
+
+def max_n(name: str) -> int:
+    """The largest n that kernel ``name`` ("kkt_solve" or "chol_solve")
+    takes: one problem's matrix must fit one block's shared memory."""
+    return int(getattr(library(), f"qpdo_{name}_max_n")())

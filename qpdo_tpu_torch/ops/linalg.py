@@ -7,9 +7,11 @@ solve runs.  The reduced system of every problem b is
 
 formed by the fused formation kernel (``ops/fused_formation.py``) and
 factored by a Jacobi-prescaled Cholesky, optionally in a reduced
-``kkt_dtype`` with iterative refinement against exact state-dtype
-matvecs.  Cholesky and triangular solves stay on ``torch.linalg``, as the
-JAX package leaves them to ``lax.linalg``.
+``kkt_dtype`` with iterative refinement (Richardson sweeps or PCG) against
+exact state-dtype matvecs.  Cholesky and triangular solves stay on
+``torch.linalg``, as the JAX package leaves them to ``lax.linalg``, except
+under ``Settings.pallas_kkt``: there the whole solve is the fused kernel
+of ``ops/fused_kkt.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from __future__ import annotations
 import torch
 
 from .batched import all_finite, bwhere, mtv, mv, norm2
+from .cg import pcg
 from .fused_formation import fused_formation
+from .fused_kkt import fused_kkt_solve
 
 
 def resolve_dtype(name, default: torch.dtype) -> torch.dtype:
@@ -50,25 +54,34 @@ def _static_reg(dtype: torch.dtype) -> float:
     return 100.0 * float(torch.finfo(dtype).eps)
 
 
-def jacobi_cholesky(K):
-    """Factor Khat = D^-1 K D^-1 + reg*I with D = sqrt(diag K), per problem.
-    Returns (chol(Khat), dinv).
-
-    Like ``jnp.linalg.cholesky``, the input is symmetrized first and a
-    problem whose matrix is not positive definite gets an all-NaN factor
-    (``cholesky_ex`` reports it instead of raising), so the callers'
-    finiteness guards act on that problem alone."""
+def _jacobi_scale(K):
+    """(D^-1 K D^-1, dinv) with D = sqrt(diag K); a non-positive diagonal
+    entry gets scale 1."""
     d = torch.sqrt(torch.diagonal(K, dim1=-2, dim2=-1))
     d = torch.where(d > 0, d, torch.ones_like(d))
     dinv = 1.0 / d
-    Khat = K * dinv[..., :, None] * dinv[..., None, :]
+    return K * dinv[..., :, None] * dinv[..., None, :], dinv
+
+
+def _cholesky_nan(Khat):
+    """Lower Cholesky factor per problem.  Like ``jnp.linalg.cholesky``,
+    the input is symmetrized first and a problem whose matrix is not
+    positive definite gets an all-NaN factor (``cholesky_ex`` reports it
+    instead of raising), so the callers' finiteness guards act on that
+    problem alone."""
+    Khat = (Khat + Khat.mT) / 2
+    chol, info = torch.linalg.cholesky_ex(Khat)
+    return bwhere(info == 0, chol, torch.full_like(chol, float("nan")))
+
+
+def jacobi_cholesky(K):
+    """Factor Khat = D^-1 K D^-1 + reg*I with D = sqrt(diag K), per problem.
+    Returns (chol(Khat), dinv)."""
+    Khat, dinv = _jacobi_scale(K)
     n = K.shape[-1]
     Khat = Khat + _static_reg(K.dtype) * torch.eye(n, dtype=K.dtype,
                                                    device=K.device)
-    Khat = (Khat + Khat.mT) / 2
-    chol, info = torch.linalg.cholesky_ex(Khat)
-    chol = bwhere(info == 0, chol, torch.full_like(chol, float("nan")))
-    return chol, dinv
+    return _cholesky_nan(Khat), dinv
 
 
 def kkt_inverse(Q, A, active, mu, sigma, proximal: bool, kkt_dtype=None):
@@ -100,8 +113,41 @@ def _prescaled_tri_solver(chol, dinv, out_dtype):
     return solve1
 
 
+def _state_dtype_kkt_solver(Q, A, active, mu, sigma, proximal: bool):
+    """b -> K^-1 b with the factor in the state dtype: the escalation of
+    the PCG refinement (``linalg.py:179-213`` of the JAX package) for the
+    penalties below which a float32 factor cannot exist.  Jacobi-prescaled
+    like the fast path, without the static shift; ``torch.linalg`` factors
+    in float64 on the card as on the CPU."""
+    K = form_kkt(Q, A, active, mu, sigma, proximal)
+    Khat, dinv = _jacobi_scale(K)
+    chol = _cholesky_nan(Khat)
+    return _prescaled_tri_solver(chol, dinv, Q.dtype)
+
+
+def _refine(solve1, Kmv, rhs, dx, refine_steps: int):
+    """Richardson sweeps dx += solve1(rhs - K dx) with the monotone
+    safeguard per problem: refinement diverges once cond(K)*eps(factor
+    dtype) > 1, so the better iterate is kept."""
+    if refine_steps <= 0:
+        return dx
+    r = rhs - Kmv(dx)
+    for _ in range(refine_steps):
+        dx_new = dx + solve1(r)
+        r_new = rhs - Kmv(dx_new)
+        better = norm2(r_new) < norm2(r)
+        dx = bwhere(better, dx_new, dx)
+        r = bwhere(better, r_new, r)
+    return dx
+
+
+def _pcg_tol(dt: torch.dtype) -> float:
+    return 1e-9 if dt == torch.float64 else 1e-5
+
+
 def _exact_kmv(Q, A, w, sigma, proximal: bool, kdt, dt):
-    """v -> K(w) v with matvecs in the KKT dtype (sigma is (B,))."""
+    """v -> K(w) v with matvecs in ``kdt`` (the KKT dtype for the
+    Richardson sweeps, the state dtype for PCG); sigma is (B,)."""
     Qk, Ak, wk = Q.to(kdt), A.to(kdt), w.to(kdt)
 
     def Kmv(v):
@@ -128,23 +174,43 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
     the JAX package's fused-formation branch (the weights divided in the
     state dtype, then cast, ``linalg.py:266,336``); without it the weights
     are cast first and divided in the KKT dtype (``form_kkt``).  Both reach
-    the formation kernel on a CUDA tensor.  ``escalate_rtol`` acts only
-    inside the PCG refinement, which is not ported."""
-    if pallas_kkt:
-        raise NotImplementedError(
-            "Settings.pallas_kkt: the fused chol-path Newton-solve kernel "
-            "(qpdo_tpu/ops/pallas_kkt.py) is not ported yet")
+    the formation kernel on a CUDA tensor.
+
+    ``pallas_kkt``: the whole solve (formation, Jacobi scaling, Cholesky,
+    both substitutions) is one launch of the fused kernel
+    (``ops/fused_kkt.py``), in float32 whatever ``kkt_dtype`` says; the
+    refinement sweeps re-invoke it.  The JAX package takes this branch for
+    any ``kkt_dtype`` on the CPU but only for float32 on a device
+    (``linalg.py:269``); the port takes it whenever the flag is set.
+
+    ``pcg_refine`` > 0 replaces the Richardson sweeps by PCG
+    preconditioned by the reduced-precision factor, with state-dtype
+    matvecs; where its relative residual ends above ``escalate_rtol`` (or
+    NaN) and the factor dtype is reduced, that problem is solved again with
+    a factor in the state dtype."""
     if ytilde is not None or res_dual_in is not None:
         raise NotImplementedError(
             "Settings.fused_newton_rhs is not ported yet")
-    if pcg_refine > 0:
-        raise NotImplementedError(
-            "Settings.kkt_pcg_refine (PCG refinement and state-dtype "
-            "escalation, qpdo_tpu/ops/cg.py) is not ported yet; it engages "
-            "when kkt_dtype is reduced and mu_min < 1e-7")
     dt = Q.dtype
     kdt = resolve_dtype(kkt_dtype, dt)
     w = active / mu
+    if pallas_kkt:
+        f32 = torch.float32
+        sig_eff = sigma.to(f32) if proximal else torch.zeros_like(sigma, dtype=f32)
+        Q32, A32, w32 = Q.to(f32), A.to(f32), w.to(f32)
+
+        def ksolve(r):
+            return fused_kkt_solve(Q32, A32, w32, sig_eff, r.to(f32)).to(dt)
+
+        dx = ksolve(rhs)
+        if pcg_refine > 0:
+            # PCG against matvecs in the state dtype
+            dx, _, _ = pcg(_exact_kmv(Q, A, w, sigma, proximal, dt, dt), rhs,
+                           ksolve, _pcg_tol(dt), pcg_refine)
+        else:
+            dx = _refine(ksolve, _exact_kmv(Q, A, w, sigma, proximal, kdt, dt),
+                         rhs, dx, refine_steps)
+        return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
     if pallas_formation:
         sig = sigma.to(kdt) if proximal else torch.zeros_like(sigma, dtype=kdt)
         K = fused_formation(A.to(kdt), w.to(kdt), Q.to(kdt), sig)
@@ -153,17 +219,22 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
                      sigma.to(kdt), proximal)
     chol, dinv = jacobi_cholesky(K)
     solve1 = _prescaled_tri_solver(chol, dinv, dt)
-    Kmv = _exact_kmv(Q, A, w, sigma, proximal, kdt, dt)
 
-    dx = solve1(rhs)
-    if refine_steps > 0:
-        r = rhs - Kmv(dx)
-        for _ in range(refine_steps):
-            dx_new = dx + solve1(r)
-            r_new = rhs - Kmv(dx_new)
-            # monotone safeguard, per problem
-            better = norm2(r_new) < norm2(r)
-            dx = bwhere(better, dx_new, dx)
-            r = bwhere(better, r_new, r)
+    if pcg_refine > 0:
+        Kmv_exact = _exact_kmv(Q, A, w, sigma, proximal, dt, dt)
+        dx, _, rel = pcg(Kmv_exact, rhs, solve1, _pcg_tol(dt), pcg_refine)
+        if escalate_rtol > 0 and kdt != dt:
+            esc_ok = rel <= escalate_rtol              # False on NaN
+            # lax.cond under vmap computes both sides; here the state-dtype
+            # factor is built only when some problem needs it
+            if not bool(esc_ok.all()):
+                solve64 = _state_dtype_kkt_solver(Q, A, active, mu, sigma,
+                                                  proximal)
+                dx2 = solve64(rhs)
+                dx2 = dx2 + solve64(rhs - Kmv_exact(dx2))
+                dx = bwhere(esc_ok, dx, dx2)
+    else:
+        dx = _refine(solve1, _exact_kmv(Q, A, w, sigma, proximal, kdt, dt),
+                     rhs, solve1(rhs), refine_steps)
     # a NaN factor must not poison the state
     return bwhere(all_finite(dx), dx, torch.zeros_like(dx))

@@ -21,10 +21,11 @@ from ..solver.scaling import scale_problem
 from ..types import Problem, Result, ScaledProblem, Settings, SolverState, tree_map
 
 
-def _solve_batch(problems: Problem, settings: Settings) -> Result:
+def _solve_batch(problems: Problem, settings: Settings,
+                 x0=None, y0=None) -> Result:
     """Plain lock-step batch: every problem runs until the slowest ends."""
     sps = scale_problem(problems, settings.scaling, settings.ruiz_kkt)
-    return core.solve_scaled(sps, settings)
+    return core.solve_scaled(sps, settings, x0, y0)
 
 
 def solve_batch(problems: Problem, settings: Optional[Settings] = None,
@@ -33,13 +34,12 @@ def solve_batch(problems: Problem, settings: Optional[Settings] = None,
     the device of its tensors.
 
     ``compact=True`` enables straggler compaction (``_solve_batch_compact``).
-    Warm starts (``x0``/``y0``) are not ported yet."""
+    ``x0`` (B, n) and ``y0`` (B, m) warm-start every problem (unscaled
+    points on the problems' device; None for a cold start)."""
     settings = settings or Settings()
-    if x0 is not None or y0 is not None:
-        raise NotImplementedError("warm start (x0/y0) is not ported yet")
     if compact:
-        return _solve_batch_compact(problems, settings)
-    return _solve_batch(problems, settings)
+        return _solve_batch_compact(problems, settings, x0, y0)
+    return _solve_batch(problems, settings, x0, y0)
 
 
 def _take(tree, idx):
@@ -100,21 +100,26 @@ def _run_compact(sp_b: ScaledProblem, stg: Settings, state: SolverState,
     return st
 
 
-def _solve_batch_compact(problems: Problem, settings: Settings) -> Result:
-    """Batched solve with straggler compaction (batch.py:55-174), cold
-    start.  With ``hybrid_warmup`` on float64 data: a float32 phase to
-    ``warmup_eps`` (``core.warmup_settings``), ``core.upcast_state``, then
-    the accurate phase; each phase runs ``_run_compact``."""
+def _solve_batch_compact(problems: Problem, settings: Settings,
+                         x0=None, y0=None) -> Result:
+    """Batched solve with straggler compaction (batch.py:55-174).  With
+    ``hybrid_warmup`` on float64 data: a float32 phase to ``warmup_eps``
+    (``core.warmup_settings``), ``core.upcast_state``, then the accurate
+    phase; each phase runs ``_run_compact``."""
     sps = scale_problem(problems, settings.scaling, settings.ruiz_kkt)
     if settings.hybrid_warmup and sps.data.Q.dtype != torch.float32:
         stg1 = core.warmup_settings(settings)
         sp32 = cast_scaled_problem(sps, torch.float32)
-        s = core.init_state(sp32, stg1)
+        s = core.init_state(sp32, stg1,
+                            *core.cast_warm_start(x0, y0, torch.float32))
         s = _run_compact(sp32, stg1, s, core.warmup_iter_cap(settings))
         s = core.upcast_state(sps, settings, s)
         s = core.polish_state(sps, settings, s)
     else:
-        s = core.init_state(sps, settings)
+        s = core.init_state(sps, settings, x0, y0)
+        if x0 is not None and y0 is not None:
+            # warm-start pre-loop polish, matching core.solve_scaled
+            s = core.polish_state(sps, settings, s)
     s = _run_compact(sps, settings, s, settings.max_iter)
     s = core.polish_state(sps, settings, s)
     return core.finalize(sps, settings, s)

@@ -77,19 +77,34 @@ def mixed_mode(settings: Settings, dt: torch.dtype) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# State initialization (qpdo_warm_start, qpdo.c:217-299), cold start only
+# Warm start / state initialization (qpdo_warm_start, qpdo.c:217-299)
 # ---------------------------------------------------------------------------
 
 @_with_matmul_precision
-def init_state(op, settings: Settings) -> SolverState:
+def init_state(op, settings: Settings, x0=None, y0=None) -> SolverState:
+    """The initial state of a batch.  ``x0`` (B, n) and ``y0`` (B, m) are
+    unscaled warm-start points; None means a cold start of that side (the
+    JAX package's ``warm_x``/``warm_y`` flags)."""
     op = as_operator(op)
     dt = op.dtype
     sigma = _scalar(op, settings.sigma_init)
-    x = op.zeros_primal()
-    Qx = op.zeros_primal()
-    Ax = op.zeros_dual()
-    y = op.zeros_dual()
-    Aty = op.zeros_primal()
+    warm_x, warm_y = x0 is not None, y0 is not None
+
+    if warm_x:
+        x = op.Dinv * x0.to(dt)                              # qpdo.c:237-242
+        Qx = op.Qmv(x)
+        Ax = op.Amv(x)
+    else:
+        x = op.zeros_primal()
+        Qx = op.zeros_primal()
+        Ax = op.zeros_dual()
+
+    if warm_y:
+        y = op.cost[:, None] * (op.Einv * y0.to(dt))         # qpdo.c:268-274
+        Aty = op.Atmv(y)
+    else:
+        y = op.zeros_dual()
+        Aty = op.zeros_primal()
 
     # initialize_mu: Birgin-Martinez balancing (iteration.c:98-109)
     Qx_eff = Qx + sigma[:, None] * x if settings.proximal else Qx
@@ -98,6 +113,17 @@ def init_state(op, settings: Settings) -> SolverState:
     mu = torch.clamp(
         0.1 * torch.clamp(0.5 * torch.square(Ax - torch.clamp(Ax, op.l, op.u)),
                           min=1.0) / fmax[:, None], 1e-3, 1e3)
+
+    if (warm_x or warm_y) and settings.warm_mu_adapt:
+        # Scale the initial penalties by the warm point's own KKT residual
+        # (core.py:109-128 of the JAX package): a near-optimal point
+        # justifies near-final penalties, a bad one keeps scale 1.
+        y_term = (op.E * op.E / op.cost[:, None]) * y
+        rp0 = norm_inf(op.Einv * (Ax - torch.clamp(Ax + y_term, op.l, op.u)))
+        rd0 = norm_inf(op.Dinv * (Qx + op.q + Aty)) / op.cost
+        quality = torch.maximum(rp0, rd0)
+        mu_scale = torch.clamp(quality, settings.warm_mu_scale_min, 1.0)
+        mu = torch.clamp(mu * mu_scale[:, None], min=settings.mu_min)
 
     zero = _scalar(op, 0.0)
     i0 = _scalar(op, 0, torch.int32)
@@ -567,19 +593,30 @@ def upcast_state(op, settings: Settings, s: SolverState) -> SolverState:
     return out
 
 
+def cast_warm_start(x0, y0, dtype):
+    """The warm-start points in ``dtype`` (None stays None)."""
+    return (None if x0 is None else x0.to(dtype),
+            None if y0 is None else y0.to(dtype))
+
+
 @_with_matmul_precision
-def solve_scaled(op, settings: Settings) -> Result:
-    """Run the main loop on scaled data (cold start) and unscale the
-    outputs; the batch runs in lock step without compaction."""
+def solve_scaled(op, settings: Settings, x0=None, y0=None) -> Result:
+    """Run the main loop on scaled data and unscale the outputs; the batch
+    runs in lock step without compaction.  ``x0``/``y0`` warm-start it
+    (unscaled points, None for a cold start)."""
     op = as_operator(op)
     if settings.hybrid_warmup and op.dtype != torch.float32:
         stg1 = warmup_settings(settings)
         op32 = op.cast(torch.float32)
-        s = init_state(op32, stg1)
+        s = init_state(op32, stg1, *cast_warm_start(x0, y0, torch.float32))
         s = run_loop(op32, stg1, s, warmup_iter_cap(settings))
         s0 = polish_state(op, settings, upcast_state(op, settings, s))
     else:
-        s0 = init_state(op, settings)
+        s0 = init_state(op, settings, x0, y0)
+        if x0 is not None and y0 is not None:
+            # the warm-start polish of core.py:831-836: nothing unless
+            # settings.polish, which is not ported
+            s0 = polish_state(op, settings, s0)
     s = run_loop(op, settings, s0, settings.max_iter)
     s = polish_state(op, settings, s)
     return finalize(op, settings, s)

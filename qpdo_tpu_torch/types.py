@@ -16,14 +16,17 @@ Kernel flags.  ``pallas_formation``, ``pallas_residuals`` and
 ``pallas_kkt`` keep their names, but in the port they do not choose
 between a kernel and plain tensor code.  The device does: a CUDA tensor
 always goes through the hand-written CUDA kernel
-(``ops/fused_formation.py``, ``ops/fused_residuals.py``) and a CPU tensor
-through the kernel's plain PyTorch version.  The flags keep only the
+(``ops/fused_formation.py``, ``ops/fused_residuals.py``,
+``ops/fused_kkt.py``) and a CPU tensor through the kernel's plain PyTorch
+version.  The flags keep only the
 arithmetic the JAX package ties to them, so that both packages agree bit
 for bit where they can: ``pallas_formation`` selects the order in which
 the Newton solve computes the weights (``ops/linalg.newton_system_solve``)
 and ``pallas_residuals`` selects how the step recovers the linesearch's
-``df`` (``solver/core.step``).  ``pallas_kkt`` (the fused chol-path Newton
-solve) is not ported yet and raises ``NotImplementedError``.
+``df`` (``solver/core.step``).  ``pallas_kkt`` selects the fused Newton
+solve: formation, Jacobi scaling, Cholesky and both substitutions in one
+kernel, in float32 whatever ``kkt_dtype`` says
+(``ops/linalg.newton_system_solve``).
 
 Matmul precision.  ``matmul_precision`` and ``warmup_matmul_precision``
 set PyTorch's TF32 switches for the phase they govern: "highest" (the
@@ -65,7 +68,7 @@ class Problem(NamedTuple):
 class Settings:
     """Solver settings: the fields and defaults of ``qpdo_tpu.types.Settings``.
 
-    Only the settings of the ported slice (the dense batched solve) are
+    Only the settings of the ported slices (the dense solve) are
     read; the sparse, structured, banded and driver fields are kept for
     parity of the settings object and ignored."""
 

@@ -76,13 +76,13 @@ def _jax_states(settings, B=5, n=24, m=36, seed=7, steps=6):
 def test_convert_problem_and_state():
     settings = qt.Settings(kkt_solver="ns")
     p, sp, s, _ = _jax_states(settings, steps=1)
-    tp = convert.problem(p)
+    tp = convert.problem(p, "cpu")
     assert tp.Q.shape == (5, 24, 24) and tp.A.shape == (5, 36, 24)
     assert tp.Q.dtype == torch.float64
-    tsp = convert.scaled_problem(sp)
+    tsp = convert.scaled_problem(sp, "cpu")
     np.testing.assert_array_equal(tsp.scaling.Einv.numpy(),
                                   np.asarray(sp.scaling.Einv))
-    ts = convert.state(s)
+    ts = convert.state(s, "cpu")
     assert ts.kkt_cache.shape == (5, 24, 24)
     assert ts.iter.dtype == torch.int32 and ts.sigma.shape == (5,)
     for name in pt.types.SolverState._fields:
@@ -98,8 +98,8 @@ def test_one_step_matches_jax(solver):
                            pallas_formation=(solver == "ns"))
     _, sp, s, step = _jax_states(settings)
     js = step(sp, s)
-    ts = tcore.step(convert.scaled_problem(sp), convert.settings(settings),
-                    convert.state(s))
+    ts = tcore.step(convert.scaled_problem(sp, "cpu"), convert.settings(settings),
+                    convert.state(s, "cpu"))
     assert (solver == "ns") == (ts.kkt_cache is not None)
     for name in pt.types.SolverState._fields:
         a, b = getattr(ts, name), getattr(js, name)

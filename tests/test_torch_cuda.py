@@ -4,12 +4,13 @@ These tests need an NVIDIA GPU and nvcc and skip elsewhere.  They import
 no JAX, so they also run where JAX is not installed, without the suite's
 conftest:
 
-    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda*.py
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (formation: 1e-5 f32 / 1e-12 f64 relative to max|K|; residuals:
 elementwise rtol 1e-6 f32 / 1e-13 f64, ``active`` equal), and a small batch
-solved on the card must agree with the same solve on the CPU.
+solved on the card must agree with the same solve on the CPU.  The two KKT
+kernels are held in tests/test_torch_cuda_kkt.py.
 """
 
 import numpy as np

@@ -63,7 +63,7 @@ def _scaled_pair(B, n, m, seed):
     d = _family(B, n, m, seed)
     jsp = jax.vmap(lambda p: j_scale(p, 10))(
         qt.Problem(**{k: jnp.asarray(v) for k, v in d.items()}))
-    return jsp, convert.scaled_problem(jsp)
+    return jsp, convert.scaled_problem(jsp, "cpu")
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
