@@ -27,7 +27,11 @@ Phases (any failure raises and exits non-zero):
    version and beside the library route for the same function (cuBLAS and
    ``torch.linalg`` calls: for the fused KKT solve, formation kernel ->
    ``jacobi_cholesky`` -> two triangular solves), with the least time the
-   card could take for the same bytes and operations.
+   card could take for the same bytes and operations.  ``ms`` is what the
+   solver loop sees (back-to-back eager calls: the host's issue time once a
+   kernel is faster than its wrapper); ``device_ms`` is the kernel's time
+   with the host out of the way (replays of a CUDA graph that captured 100
+   calls of the wrapper).
 6. The fused KKT-solve kernel and the Cholesky-solve kernel against their
    plain versions at B=256, m=150, n=100, float32: max error relative to
    max|dx| <= 2e-5 (found: 1.5e-6 to 4.2e-6; the same recurrences summed
@@ -35,7 +39,9 @@ Phases (any failure raises and exits non-zero):
    shift -> Cholesky-solve kernel -> unscale against the fused kernel, same
    tolerance.  One problem made indefinite and one with a NaN in rhs:
    kernel and plain version agree on which problems come back non-finite,
-   and the other problems are untouched.
+   and the other problems are untouched.  Both kernels also at n=200, the
+   shared-memory route that serves 128 < n <= 220 (239), against their
+   plain versions, same tolerance.
 7. The second path: the same family through ``solve_batch(...,
    compact=True)`` with ``kkt_dtype="float32", mu_min=1e-7,
    refine_steps=2, pallas_kkt=True, pallas_residuals=True`` (float64
@@ -131,6 +137,33 @@ def time_ms(fn, reps=100, warmup=10):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, calls=100, replays=5):
+    """Mean time per call on the card with the host out of the way: ``calls``
+    calls are captured into one CUDA graph and the graph is replayed."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def bound_ms(nbytes, flops, peak_flops=PEAK_F32):
     """The least time for that many bytes (each input read once, each
     output written once) and operations, and which of the two sets it."""
@@ -138,13 +171,15 @@ def bound_ms(nbytes, flops, peak_flops=PEAK_F32):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def kkt_inputs(seed=6):
-    """Float32 inputs of the fused KKT solve at the bench shape."""
+def kkt_inputs(seed=6, shape=None):
+    """Float32 inputs of the fused KKT solve, ``shape`` = (B, m, n): the
+    bench shape unless told otherwise."""
+    b, m, n = shape or (B, M, N)
     rng = np.random.default_rng(seed)
-    Mx = rng.standard_normal((B, N, N))
-    arrays = (np.einsum("bij,bkj->bik", Mx, Mx) / N + 0.1 * np.eye(N),
-              rng.standard_normal((B, M, N)), rng.random((B, M)),
-              np.full(B, 1e-3), rng.standard_normal((B, N)))
+    Mx = rng.standard_normal((b, n, n))
+    arrays = (np.einsum("bij,bkj->bik", Mx, Mx) / n + 0.1 * np.eye(n),
+              rng.standard_normal((b, m, n)), rng.random((b, m)),
+              np.full(b, 1e-3), rng.standard_normal((b, n)))
     return [torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
             for a in arrays]
 
@@ -403,15 +438,17 @@ def phase5(ff, fr, fk, tl):
     for dtype in (f32, torch.float64):
         fa = formation_inputs(dtype)
         ra = residual_inputs(dtype)
-        ms[("formation", dtype)] = (
-            time_ms(lambda: ff.fused_formation(*fa)),
-            time_ms(lambda: ff.reference_formation(*fa)))
-        ms[("residuals", dtype)] = (
-            time_ms(lambda: fr.fused_residuals(*ra)),
-            time_ms(lambda: fr.reference_residuals(*ra)))
-    for (name, dtype), (k, p) in ms.items():
+        for name, kernel, plain in (
+                ("formation", lambda: ff.fused_formation(*fa),
+                 lambda: ff.reference_formation(*fa)),
+                ("residuals", lambda: fr.fused_residuals(*ra),
+                 lambda: fr.reference_residuals(*ra))):
+            ms[(name, dtype)] = (time_ms(kernel), time_ms(plain),
+                                 device_ms(kernel), device_ms(plain))
+    for (name, dtype), (k, p, dk, dp) in ms.items():
         print(f"phase 5: {name} {dtype} at B={B} m={M} n={N}: kernel "
-              f"{k:.4f} ms, plain {p:.4f} ms per call")
+              f"{k:.4f} ms, plain {p:.4f} ms per call; on the card alone "
+              f"(graph replay) kernel {dk:.4f} ms, plain {dp:.4f} ms")
 
     Q, A, w, sigma, rhs = kkt_inputs()
     Khat, bhat, dinv = scaled_system(fk, ff, Q, A, w, sigma, rhs)
@@ -440,34 +477,41 @@ def phase5(ff, fr, fk, tl):
              lambda: torch.linalg.solve(Khat, bhat))):
         k1, l1 = timed(kernel, 100), timed(library, 100)
         l2, k2 = timed(library, 100), timed(kernel, 100)
-        t[name] = dict(ms=min(k1, k2), plain_ms=timed(plain, 3),
+        t[name] = dict(ms=min(k1, k2), device_ms=device_ms(kernel),
+                       plain_ms=timed(plain, 3),
                        library_route_ms=min(l1, l2),
+                       library_route_device_ms=None,
                        library_ms=None if single is None
                        else timed(single, 100))
         print(f"phase 5: {name} float32 at B={B} m={M} n={N}: kernel "
-              f"{t[name]['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain version "
+              f"{t[name]['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), on the card "
+              f"alone {t[name]['device_ms']:.4f} ms, plain version "
               f"{t[name]['plain_ms']:.2f} ms, library route (torch.linalg) "
               f"{t[name]['library_route_ms']:.4f} ms ({l1:.4f}, {l2:.4f})"
               + ("" if single is None else
                  f", torch.linalg.solve {t[name]['library_ms']:.4f} ms"))
     for name in ("formation", "residuals"):
-        k, p = ms[(name, f32)]
+        k, p, dk, dp = ms[(name, f32)]
         # the plain versions of these two are the library route: cuBLAS
         # batched GEMM, ATen elementwise and reduction kernels
-        t[name] = dict(ms=k, plain_ms=p, library_route_ms=p, library_ms=None)
+        t[name] = dict(ms=k, device_ms=dk, plain_ms=p, library_route_ms=p,
+                       library_route_device_ms=dp, library_ms=None)
 
     # the work of one call, from the shapes: bytes with each input read and
-    # each output written once (4 bytes each), operations as in the sources
+    # each output written once (4 bytes each), and the operations the
+    # function needs: K is symmetric, so its product is one multiply-add per
+    # row of A and entry on or above the diagonal, m * n * (n + 1) operations
     work = {
         "formation": (4 * (B * M * N + B * M + 2 * B * N * N + B),
-                      2 * B * M * N * N),
+                      B * M * N * (N + 1)),
         # 16 inputs and 6 outputs; about 22 operations per dual entry and
         # 10 per primal entry
         "residuals": (4 * (12 * B * M + 7 * B * N + 6 * B),
                       22 * B * M + 10 * B * N),
-        # formation, Jacobi scale, n^3/3 factor, two n^2 substitutions
+        # the symmetric product, Jacobi scale, n^3/3 factor, two n^2
+        # substitutions
         "kkt_solve": (4 * (B * N * N + B * M * N + B * M + B + 2 * B * N),
-                      B * (2 * M * N * N + N ** 3 // 3 + 4 * N * N)),
+                      B * (M * N * (N + 1) + N ** 3 // 3 + 4 * N * N)),
         "chol_solve": (4 * (B * N * N + 2 * B * N),
                        B * (N ** 3 // 3 + 2 * N * N)),
     }
@@ -489,15 +533,19 @@ def phase5(ff, fr, fk, tl):
     rows = []
     for name in ("formation", "residuals", "kkt_solve", "chol_solve"):
         bms, by = bound_ms(*work[name])
-        print(f"phase 5: {name} float32: kernel {t[name]['ms']:.4f} ms, bound "
+        print(f"phase 5: {name} float32: kernel {t[name]['ms']:.4f} ms "
+              f"(on the card alone {t[name]['device_ms']:.4f} ms), bound "
               f"{bms:.5f} ms (by {by}: {work[name][0] / 1e6:.2f} MB, "
               f"{work[name][1] / 1e9:.4f} GFLOP)")
         rows.append({"name": name, "route": "cuda", "source": meta[name][0],
                      "replaces": meta[name][1], "launches": 0,
                      "max_abs_err": 0.0, "ms": t[name]["ms"],
+                     "device_ms": t[name]["device_ms"],
                      "plain_ms": t[name]["plain_ms"], "bound_ms": bms,
                      "bound_by": by, "library_ms": t[name]["library_ms"],
                      "library_route_ms": t[name]["library_route_ms"],
+                     "library_route_device_ms":
+                         t[name]["library_route_device_ms"],
                      "library_route": meta[name][2]})
     return rows
 
@@ -532,6 +580,23 @@ def phase6(ff, fk):
     print(f"phase 6: against a float64 solve: kernel "
           f"{rel_err(dx.double(), exact):.3e}, plain version "
           f"{rel_err(ref.double(), exact):.3e}")
+
+    # the shared-memory route (128 < n): both kernels at n = 200
+    big = kkt_inputs(seed=16, shape=(32, 300, 200))
+    dx2 = fk.fused_kkt_solve(*big)
+    ref2 = fk.reference_kkt_solve(*big)
+    Khat2, bhat2, dinv2 = scaled_system(fk, ff, *big)
+    x2 = fk.chol_solve_stacked(Khat2, bhat2)
+    torch.cuda.synchronize()
+    for what, r in (("kkt_solve vs plain", rel_err(dx2, ref2)),
+                    ("chol_solve vs plain",
+                     rel_err(x2, fk.reference_chol_solve(Khat2, bhat2))),
+                    ("formation -> scale -> chol_solve -> unscale vs "
+                     "kkt_solve", rel_err(x2 * dinv2, dx2))):
+        print(f"phase 6: n=200 (shared-memory route), B=32, m=300: {what}: "
+              f"max error relative to max|dx| {r:.3e} (tol {tol})")
+        if not (r <= tol):
+            raise AssertionError(f"phase 6: n=200: {what}: {r:.3e} > {tol}")
 
     # failures stay in their problem
     Qb, rb = Q.clone(), rhs.clone()

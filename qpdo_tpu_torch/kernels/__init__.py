@@ -32,6 +32,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("formation.cu", "residuals.cu", "kkt_solve.cu")
+# included by the sources
+HEADERS = ("async_copy.cuh", "phase_clocks.cuh", "shared_grant.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,7 +113,7 @@ def library() -> ctypes.CDLL:
     nvcc = find_nvcc()
     sources = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256()
-    for p in sources:
+    for p in (*sources, *(CSRC / h for h in HEADERS)):
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = build_dir() / f"libqpdo_kernels_{digest.hexdigest()[:16]}.so"

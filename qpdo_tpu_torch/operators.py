@@ -146,6 +146,11 @@ class DenseOperator:
         if pcg_iters < 0:  # AUTO: only the f32-factor/tiny-mu regime pays
             reduced = resolve_dtype(settings.kkt_dtype, self.dtype) != self.dtype
             pcg_iters = 32 if (reduced and settings.mu_min < 1e-7) else 0
+        # the fused solve runs in float32 whatever kkt_dtype says: hand it
+        # the casts kept by this operator instead of two copies per call
+        kkt_mats = ((self._mat("Q", torch.float32),
+                     self._mat("A", torch.float32))
+                    if settings.pallas_kkt else None)
         return newton_system_solve(d.Q, d.A, active, mu, sigma, rhs,
                                    settings.proximal, settings.refine_steps,
                                    settings.kkt_dtype,
@@ -153,7 +158,8 @@ class DenseOperator:
                                    ytilde, res_dual_in,
                                    pcg_refine=pcg_iters,
                                    pallas_kkt=settings.pallas_kkt,
-                                   escalate_rtol=settings.kkt_escalate_rtol)
+                                   escalate_rtol=settings.kkt_escalate_rtol,
+                                   kkt_mats=kkt_mats)
 
     def kkt_cache_init(self, active, mu, settings: Settings, sigma=None):
         """The Newton-Schulz-tracked inverse's exact (re)build."""

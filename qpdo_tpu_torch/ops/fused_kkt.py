@@ -7,8 +7,9 @@ Replaces the TPU kernels of ``qpdo_tpu/ops/pallas_kkt.py``:
 ``pallas_chol_solve_stacked`` l.299).  On a CUDA tensor each wrapper
 launches its hand-written kernel in ``qpdo_tpu_torch/csrc/kkt_solve.cu``
 (the header there says what bounds the kernels on the H100 and how the
-design answers); on a CPU tensor it runs the plain version below, which
-has the same semantics step for step:
+design answers: K is factored in the registers of one block up to n = 128
+and in its shared memory above, chosen from n alone); on a CPU tensor it
+runs the plain version below, which has the same semantics step for step:
 
     K    = Q + sigma*I + A' diag(w) A
     dinv = 1/sqrt(diag K) where diag K > 0, else 1

@@ -166,7 +166,8 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
                         ytilde=None, res_dual_in=None,
                         pcg_refine: int = 0,
                         pallas_kkt: bool = False,
-                        escalate_rtol: float = 0.0):
+                        escalate_rtol: float = 0.0,
+                        kkt_mats=None):
     """Form K and solve K dx = rhs per problem (the chol Newton solve).
 
     Arguments are batched: Q (B, n, n), A (B, m, n), active/mu (B, m),
@@ -182,6 +183,8 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
     refinement sweeps re-invoke it.  The JAX package takes this branch for
     any ``kkt_dtype`` on the CPU but only for float32 on a device
     (``linalg.py:269``); the port takes it whenever the flag is set.
+    ``kkt_mats``: (Q, A) already cast to float32, for a caller that keeps
+    them across calls (``DenseOperator`` does); cast here when absent.
 
     ``pcg_refine`` > 0 replaces the Richardson sweeps by PCG
     preconditioned by the reduced-precision factor, with state-dtype
@@ -197,7 +200,8 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
     if pallas_kkt:
         f32 = torch.float32
         sig_eff = sigma.to(f32) if proximal else torch.zeros_like(sigma, dtype=f32)
-        Q32, A32, w32 = Q.to(f32), A.to(f32), w.to(f32)
+        Q32, A32 = kkt_mats if kkt_mats is not None else (Q.to(f32), A.to(f32))
+        w32 = w.to(f32)
 
         def ksolve(r):
             return fused_kkt_solve(Q32, A32, w32, sig_eff, r.to(f32)).to(dt)

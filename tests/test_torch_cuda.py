@@ -53,6 +53,33 @@ def test_formation_kernel_matches_plain(device, dtype, ftol, rtol):
 
 
 @pytest.mark.parametrize("dtype,ftol,rtol", DTYPES)
+@pytest.mark.parametrize("B,m,n", [(3, 37, 19), (5, 70, 100), (2, 9, 140),
+                                   (2, 40, 300), (4, 0, 20)])
+def test_formation_kernel_mirrors_with_a_nonsymmetric_q(device, dtype, ftol,
+                                                        rtol, B, m, n):
+    """Only the tiles on or above the diagonal are computed: the mirror
+    must carry Q at its own position, at ragged shapes, over several
+    128-wide tiles, and for n that 16-byte copies cannot take."""
+    rng = np.random.default_rng(n)
+    arrays = (rng.standard_normal((B, m, n)), rng.random((B, m)),
+              rng.standard_normal((B, n, n)), rng.random(B) * 0.1)
+    args = [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
+    K = ff.fused_formation(*args)
+    ref = ff.reference_formation(*args)
+    assert torch.isfinite(K).all()
+    assert ((K - ref).abs().max() / ref.abs().max()).item() <= ftol
+    # two calls give the same bits (no atomics, a fixed summation order)
+    assert torch.equal(K, ff.fused_formation(*args))
+    # a view that starts off the 16-byte grid takes the unaligned copies
+    if m > 0:
+        flat = torch.empty(args[0].numel() + 1, dtype=dtype, device=device)
+        A1 = flat[1:].view(B, m, n)
+        A1.copy_(args[0])
+        K1 = ff.fused_formation(A1, *args[1:])
+        assert ((K1 - ref).abs().max() / ref.abs().max()).item() <= ftol
+
+
+@pytest.mark.parametrize("dtype,ftol,rtol", DTYPES)
 def test_residual_kernel_matches_plain(device, dtype, ftol, rtol):
     rng = np.random.default_rng(1)
     B, m, n = 8, 150, 100

@@ -46,8 +46,11 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
+# n <= 128 takes the register route, above it the shared-memory route
 @pytest.mark.parametrize("B,m,n", [(8, 150, 100), (5, 45, 37), (3, 7, 3),
-                                   (2, 300, 220)])
+                                   (2, 300, 220), (4, 190, 128),
+                                   (4, 190, 129), (3, 20, 16), (3, 30, 17),
+                                   (260, 150, 100)])
 def test_kkt_solve_kernel_matches_plain(device, B, m, n):
     args = _kkt_args(device, B, m, n)
     before = fk.fused_kkt_solve.launches
@@ -57,11 +60,13 @@ def test_kkt_solve_kernel_matches_plain(device, B, m, n):
     assert dx.is_cuda and dx.dtype == torch.float32 and dx.shape == (B, n)
     assert _rel(dx, ref) <= 1e-4
     # float64 inputs are cast, not refused
+    # (and a second call gives the same bits)
     dx64 = fk.fused_kkt_solve(*[a.double() for a in args])
     assert dx64.dtype == torch.float32 and torch.equal(dx64, dx)
 
 
-@pytest.mark.parametrize("B,n", [(8, 100), (5, 37), (2, 239)])
+@pytest.mark.parametrize("B,n", [(8, 100), (5, 37), (2, 239), (4, 128),
+                                 (4, 129), (3, 1)])
 def test_chol_solve_kernel_matches_plain_and_the_fused_solve(device, B, n):
     Q, A, w, sigma, rhs = _kkt_args(device, B, n + n // 2, n)
     K = ff.fused_formation(A, w, Q, sigma)
@@ -74,6 +79,7 @@ def test_chol_solve_kernel_matches_plain_and_the_fused_solve(device, B, n):
     x = fk.chol_solve_stacked(Khat, rhs * dinv)
     assert fk.chol_solve_stacked.launches == before + 1
     assert _rel(x, fk.reference_chol_solve(Khat, rhs * dinv)) <= 1e-4
+    assert torch.equal(x, fk.chol_solve_stacked(Khat, rhs * dinv))
     if n <= kernels.max_n("kkt_solve"):
         assert _rel(x * dinv, fk.fused_kkt_solve(Q, A, w, sigma, rhs)) <= 1e-4
 

@@ -145,3 +145,40 @@ def test_newton_system_solve_pcg_refine_and_escalation_match_jax(escalate):
     assert np.isfinite(dx).all() and np.abs(dx).max() > 0
     rel = np.abs(dx - jdx).max(axis=1) / np.abs(jdx).max(axis=1)
     assert rel.max() <= 1e-6, rel
+
+
+def test_newton_solve_hands_the_fused_solve_its_cached_float32_casts(
+        monkeypatch):
+    """``DenseOperator.newton_solve`` passes the float32 Q and A it keeps;
+    the result equals, bit for bit, the solve that casts on every call."""
+    from qpdo_tpu_torch import Problem, Settings
+    from qpdo_tpu_torch import operators
+    from qpdo_tpu_torch.operators import DenseOperator
+    from qpdo_tpu_torch.solver.scaling import scale_problem
+
+    Q, A, active, mu, sigma, rhs = [_t(a) for a in
+                                    _newton_inputs(3, 30, 45, seed=36)]
+    settings = Settings(kkt_dtype="float32", refine_steps=2, pallas_kkt=True)
+    B, m = active.shape
+    sp = scale_problem(Problem(Q=Q, q=rhs, A=A, l=-torch.ones(B, m,
+                               dtype=Q.dtype), u=torch.ones(B, m,
+                               dtype=Q.dtype), c=torch.zeros(B, dtype=Q.dtype)),
+                       settings.scaling)
+    op = DenseOperator(sp)
+    new = op.newton_solve(active, mu, sigma, rhs, settings)
+    assert set(op._casts) == {("Q", torch.float32), ("A", torch.float32)}
+    kept = dict(op._casts)
+    again = op.newton_solve(active, mu, sigma, rhs, settings)
+    assert all(op._casts[k] is v for k, v in kept.items())      # cast once
+    seen = []
+
+    def casting_every_call(*args, kkt_mats=None, **kw):
+        seen.append(kkt_mats)
+        return tlinalg.newton_system_solve(*args, **kw)
+
+    monkeypatch.setattr(operators, "newton_system_solve", casting_every_call)
+    old = op.newton_solve(active, mu, sigma, rhs, settings)
+    assert seen[0][0] is kept[("Q", torch.float32)]
+    assert seen[0][1] is kept[("A", torch.float32)]
+    assert torch.equal(new, old) and torch.equal(again, old)
+    assert new.abs().max() > 0
