@@ -12,9 +12,11 @@ Phases (any failure raises and exits non-zero):
 2. Formation kernel against its plain PyTorch version on the card, at the
    bench shape (B=256, m=150, n=100), float32 and float64: max error
    relative to max|K| <= 1e-5 (f32) and 1e-12 (f64).
-3. Residual kernel against its plain version, same shape and dtypes:
-   elementwise |a - b| <= rtol * |b| with rtol 1e-6 (f32) and 1e-13
-   (f64); ``active`` equal exactly.
+3. Residual kernel against its plain version, float32 and float64, at
+   B=256 and B=4096 (m=150, n=100): every output equal bit for bit (the
+   kernel rounds each operation as the plain version does, in the same
+   order; a failure message reports the largest relative error beside the
+   former tolerance, rtol 1e-6 / 1e-13).
 4. The main path: the bench problem family (bench.py:341-352, B=256,
    n=100, m=150, seed 0) solved by ``qpdo_tpu_torch.solve_batch(...,
    compact=True)`` on cuda:0 with the bench settings plus both kernel
@@ -23,15 +25,24 @@ Phases (any failure raises and exits non-zero):
    run, results on the card.  A small batch is also solved on the card and
    on the CPU (plain versions) and must agree in status and, within 3, in
    iteration counts.  Then 3 timed runs.
-5. Time per call at the bench shape: each kernel beside its plain
-   version and beside the library route for the same function (cuBLAS and
+5. Time per call at the bench shape (the residual kernel also at
+   B=4096; formation and residuals in float32 and float64): each kernel
+   beside its plain version and beside the library route for the same
+   function (cuBLAS and
    ``torch.linalg`` calls: for the fused KKT solve, formation kernel ->
    ``jacobi_cholesky`` -> two triangular solves), with the least time the
    card could take for the same bytes and operations.  ``ms`` is what the
    solver loop sees (back-to-back eager calls: the host's issue time once a
-   kernel is faster than its wrapper); ``device_ms`` is the kernel's time
-   with the host out of the way (replays of a CUDA graph that captured 100
-   calls of the wrapper).
+   kernel is faster than its wrapper; the residual wrapper writing into
+   buffers handed in, as the loop calls it, and ``ms_allocating`` making
+   its outputs); ``device_ms`` is the kernel's time with the host out of
+   the way (replays of a CUDA graph that captured 100 calls of the
+   wrapper).  For the residual kernel also ``cold_device_ms`` (the calls
+   rotate through input sets that hold more than twice the L2, so every
+   call reads its inputs from HBM) and ``context_device_ms``, the part of
+   a solver step around it (zeros_like(sigma) -> kernel -> res_dual_in -
+   Aty, solver/core.py) beside ``context_base_device_ms``, the same two
+   ATen kernels without it.
 6. The fused KKT-solve kernel and the Cholesky-solve kernel against their
    plain versions at B=256, m=150, n=100, float32: max error relative to
    max|dx| <= 2e-5 (found: 1.5e-6 to 4.2e-6; the same recurrences summed
@@ -53,9 +64,11 @@ Phases (any failure raises and exits non-zero):
    problem with no device argument (so the card), solve, warm_start,
    update_q, update_bounds, solve; results on the card, same oracle.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  Without a CUDA device the
-script exits non-zero before printing any result.
+The line before the last is a JSON object with one entry per kernel and
+dtype (formation and residuals in both dtypes; the float64 formation
+kernel, which no path runs, with 0 launches), with its launches on each
+path; the last line is {"ok": true, "device": {...}}.  Without a CUDA
+device the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -70,9 +83,14 @@ import torch
 
 B, N, M = 256, 100, 150
 DEVICE = "cuda:0"
+# batches at which the residual kernel is checked and timed: the bench
+# batch, and one large enough that memory, not the launch, bounds it
+RESIDUAL_BATCHES = (B, 4096)
+F32, F64 = torch.float32, torch.float64
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 and float64 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, and the bytes of its L2 cache
 PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
+L2_BYTES = 50e6
 
 
 def card_line() -> str:
@@ -137,21 +155,23 @@ def time_ms(fn, reps=100, warmup=10):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, calls=100, replays=5):
+def device_ms(*fns, calls=100, replays=5):
     """Mean time per call on the card with the host out of the way: ``calls``
-    calls are captured into one CUDA graph and the graph is replayed."""
-    fn()
+    calls, taking the functions ``fns`` in turn, are captured into one CUDA
+    graph and the graph is replayed."""
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for fn in fns[:3]:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        for k in range(calls):
+            fns[k % len(fns)]()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -238,16 +258,84 @@ def formation_inputs(dtype, seed=3):
             for a in (A, w, Q, sigma)]
 
 
-def residual_inputs(dtype, seed=4):
+def residual_inputs(dtype, seed=4, b=B, m=M, n=N):
     rng = np.random.default_rng(seed)
     d = lambda *s: rng.standard_normal(s)
-    E = rng.random((B, M)) + 0.5
-    arrays = (d(B, M), d(B, M), rng.random((B, M)) + 0.1, d(B, M),
-              -(rng.random((B, M)) + 0.2), rng.random((B, M)) + 0.2,
-              E, 1.0 / E, d(B, N), d(B, N), d(B, N), d(B, N), d(B, N),
-              rng.random((B, N)) + 0.5, rng.random(B) * 0.1,
-              rng.random(B) + 0.5)
+    E = rng.random((b, m)) + 0.5
+    arrays = (d(b, m), d(b, m), rng.random((b, m)) + 0.1, d(b, m),
+              -(rng.random((b, m)) + 0.2), rng.random((b, m)) + 0.2,
+              E, 1.0 / E, d(b, n), d(b, n), d(b, n), d(b, n), d(b, n),
+              rng.random((b, n)) + 0.5, rng.random(b) * 0.1,
+              rng.random(b) + 0.5)
     return [torch.as_tensor(a, dtype=dtype, device=DEVICE) for a in arrays]
+
+
+RESIDUAL_NAMES = ("res_prim", "res_prim_in", "w", "active", "res_dual_in",
+                  "rp", "rd", "rpi", "rdi")
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def bitwise_differs(out, ref):
+    """The names of the residual outputs whose bits differ."""
+    return [name for name, a, b in zip(RESIDUAL_NAMES, out, ref)
+            if a.shape != b.shape or a.dtype != b.dtype
+            or not torch.equal(a.view(_BITS[a.dtype]), b.view(_BITS[b.dtype]))]
+
+
+def residual_bound(b, m, n, dtype):
+    """The residual block's bound: 16 inputs read and 9 outputs written
+    once (12 m + 7 n + 6 words a problem), about 22 operations per dual
+    entry and 10 per primal entry."""
+    size = torch.empty((), dtype=dtype).element_size()
+    peak = PEAK_F32 if dtype == F32 else PEAK_F64
+    nbytes = size * (12 * b * m + 7 * b * n + 6 * b)
+    return bound_ms(nbytes, 22 * b * m + 10 * b * n, peak) + (nbytes,)
+
+
+def residual_times(fr, dtype, b):
+    """Times of the residual kernel of the package ``fr`` (a checkout's
+    ``qpdo_tpu_torch.ops.fused_residuals``) at (b, M, N) in ``dtype``, by
+    the public wrapper only, so that another commit's package can be timed
+    the same way (scripts/time_residuals.py): ``ms`` as the solver loop
+    calls it (into buffers handed in, where the package has that path),
+    ``ms_allocating``, ``device_ms`` (warm: the same inputs every call),
+    ``cold_device_ms`` (inputs read from HBM), ``context_device_ms`` and
+    ``context_base_device_ms`` (the step around it, with and without the
+    kernel), the plain version's ``plain_ms`` and
+    ``library_route_device_ms``."""
+    args = residual_inputs(dtype, b=b, m=M, n=N)
+    kernel = lambda: fr.fused_residuals(*args)
+    r = dict(B=b, ms_allocating=time_ms(kernel))
+    if hasattr(fr, "kernel_outputs"):
+        out = fr.kernel_outputs(b, M, N, dtype, args[0].device)
+        r["ms"] = time_ms(lambda: fr.fused_residuals(*args, out=out))
+    else:
+        r["ms"] = r["ms_allocating"]
+    r["device_ms"] = device_ms(kernel)
+    size = torch.empty((), dtype=dtype).element_size()
+    input_bytes = size * (8 * b * M + 6 * b * N + 2 * b)
+    sets = [args] + [residual_inputs(dtype, seed=5 + k, b=b, m=M, n=N)
+                     for k in range(int(-(-2 * L2_BYTES // input_bytes)))]
+    r["cold_device_ms"] = device_ms(
+        *[lambda a=a: fr.fused_residuals(*a) for a in sets])
+    del sets
+    # solver/core.py:180-188 on the bench path: sig_eff, the block, df
+    rdi = fr.reference_residuals(*args)[4]
+
+    def step_part():
+        sig = torch.zeros_like(args[14])
+        return fr.fused_residuals(*args[:14], sig, args[15])[4] - args[10]
+
+    def step_base():
+        torch.zeros_like(args[14])
+        return rdi - args[10]
+
+    r["context_device_ms"] = device_ms(step_part)
+    r["context_base_device_ms"] = device_ms(step_base)
+    plain = lambda: fr.reference_residuals(*args)
+    r["plain_ms"] = time_ms(plain)
+    r["library_route_device_ms"] = device_ms(plain)
+    return r
 
 
 def check_formation(ff, dtype, tol):
@@ -262,25 +350,21 @@ def check_formation(ff, dtype, tol):
     return err, rel
 
 
-def check_residuals(fr, dtype, rtol):
-    args = residual_inputs(dtype)
+def check_residuals(fr, dtype, b, rtol):
+    """The kernel against its plain version: every output bit-identical."""
+    args = residual_inputs(dtype, b=b)
     out = fr.fused_residuals(*args)
     ref = fr.reference_residuals(*args)
     torch.cuda.synchronize()
-    names = ("res_prim", "res_prim_in", "w", "active", "res_dual_in",
-             "rp", "rd", "rpi", "rdi")
-    worst = 0.0
-    for name, a, b in zip(names, out, ref):
-        if name == "active":
-            if not torch.equal(a, b):
-                raise AssertionError(f"residuals {dtype}: active differs")
-            continue
-        diff = (a - b).abs()
-        if not bool((diff <= rtol * b.abs()).all()):
-            raise AssertionError(f"residuals {dtype}: {name} off by "
-                                 f"{diff.max().item():.3e}")
-        worst = max(worst, diff.max().item())
-    return worst
+    differs = bitwise_differs(out, ref)
+    if differs:
+        worst = max(((a - c).abs() / c.abs()).max().item()
+                    for a, c in zip(out, ref))
+        raise AssertionError(
+            f"residuals {dtype} B={b}: {differs} differ from the plain "
+            f"version (largest relative error {worst:.3e}; the former "
+            f"tolerance was rtol {rtol})")
+    return max((a - c).abs().max().item() for a, c in zip(out, ref))
 
 
 def main() -> int:
@@ -314,17 +398,20 @@ def main() -> int:
         pass
 
     # ---- phase 2, 3: each kernel against its plain version ----
-    max_err = {"formation": 0.0, "residuals": 0.0}
+    max_err = {}
     for dtype, ftol, rtol in ((torch.float32, 1e-5, 1e-6),
                               (torch.float64, 1e-12, 1e-13)):
         err, rel = check_formation(ff, dtype, ftol)
-        max_err["formation"] = max(max_err["formation"], err)
+        max_err[("formation", dtype)] = err
         print(f"phase 2: formation {dtype}: max abs err {err:.3e}, "
               f"relative to max|K| {rel:.3e} (tol {ftol})")
-        err = check_residuals(fr, dtype, rtol)
-        max_err["residuals"] = max(max_err["residuals"], err)
-        print(f"phase 3: residuals {dtype}: max abs err {err:.3e} "
-              f"(rtol {rtol}), active equal")
+        for b in RESIDUAL_BATCHES:
+            err = check_residuals(fr, dtype, b, rtol)
+            max_err[("residuals", dtype)] = max(
+                max_err.get(("residuals", dtype), 0.0), err)
+            print(f"phase 3: residuals {dtype} at B={b} m={M} n={N}: all "
+                  f"nine outputs bit-identical to the plain version (max "
+                  f"abs err {err:.3e})")
 
     # ---- phase 4: the main path ----
     d = bench_problems(B, N, M)
@@ -336,14 +423,14 @@ def main() -> int:
     res = pt.solve_batch(problems, settings, compact=True)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"formation": ff.fused_formation.launches,
-                "residuals": fr.fused_residuals.launches}
-    path_launches_bench = dict(launches)
-    print(f"phase 4: first solve {first_s:.2f} s, kernel launches {launches}")
+    path_launches = {"bench_ns": launch_counts(ff, fr, fk)}
+    print(f"phase 4: first solve {first_s:.2f} s, kernel launches "
+          f"{printable(path_launches['bench_ns'])}")
     if not on_card(res.x, res.y, res.info.status_val):
         raise AssertionError("results are not on the card")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    require_launched(path_launches["bench_ns"], "phase 4",
+                     ("formation", F32), ("residuals", F32),
+                     ("residuals", F64))
     status = res.info.status_val.cpu().numpy()
     x, y = res.x.cpu().numpy(), res.y.cpu().numpy()
     if x.shape != (B, N) or y.shape != (B, M):
@@ -391,37 +478,37 @@ def main() -> int:
           f"on {card}")
 
     # ---- phase 6: the KKT-solve kernels against their plain versions ----
-    max_err.update(phase6(ff, fk))
+    max_err.update({(name, F32): err for name, err in phase6(ff, fk).items()})
     # launches of the Cholesky-solve kernel's own path (no solver calls it):
     # formation kernel -> scale -> kernel -> unscale, once
-    ff.fused_formation.launches = 0
-    fk.chol_solve_stacked.launches = 0
+    reset_counts(ff, fr, fk)
     ka = kkt_inputs()
     Khat, bhat, dinv = scaled_system(fk, ff, *ka)
     composed = fk.chol_solve_stacked(Khat, bhat) * dinv
     torch.cuda.synchronize()
-    launches["chol_solve"] = fk.chol_solve_stacked.launches
-    path_launches = {"composition": {
-        "formation": ff.fused_formation.launches,
-        "chol_solve": fk.chol_solve_stacked.launches}}
-    if not torch.isfinite(composed).all() or launches["chol_solve"] <= 0:
-        raise AssertionError("the composition path did not run kernel 4")
+    path_launches["composition"] = launch_counts(ff, fr, fk)
+    if not torch.isfinite(composed).all():
+        raise AssertionError("the composition path gave non-finite results")
+    require_launched(path_launches["composition"], "the composition path",
+                     ("formation", F32), ("chol_solve", F32))
 
     # ---- phase 7: the second path, every Newton solve the fused kernel ----
-    launches["kkt_solve"], path_launches["pallas_kkt"] = phase7(
-        pt, ff, fr, fk, d, card)
+    path_launches["pallas_kkt"] = phase7(pt, ff, fr, fk, d, card)
 
     # ---- phase 8: the stateful entry point, on the card by default ----
     phase8(pt, fk)
 
     # ---- phase 5: time per call: kernel, plain version, library route ----
     rows = phase5(ff, fr, fk, tl)
+    # each kernel's launches on the path that drives it first
+    first_path = {"formation": "bench_ns", "residuals": "bench_ns",
+                  "kkt_solve": "pallas_kkt", "chol_solve": "composition"}
     for r in rows:
-        r["launches"] = launches[r["name"]]
-        r["max_abs_err"] = max_err[r["name"]]
-        r["launches_by_path"] = {"bench_ns": path_launches_bench.get(
-            r["name"], 0), **{k: v.get(r["name"], 0)
-                              for k, v in path_launches.items()}}
+        key = (r["name"], getattr(torch, r["dtype"]))
+        r["launches"] = path_launches[first_path[r["name"]]][key]
+        r["max_abs_err"] = max_err[key]
+        r["launches_by_path"] = {path: counts[key]
+                                 for path, counts in path_launches.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -429,26 +516,28 @@ def main() -> int:
 
 
 def phase5(ff, fr, fk, tl):
-    """Time every kernel at the bench shape in float32 (the type the paths
-    run them in; formation and residuals also in float64, printed only)
-    beside its plain version, the library route for the same function and
-    its bound.  Returns the rows of the kernels line."""
-    f32 = torch.float32
-    ms = {}
-    for dtype in (f32, torch.float64):
-        fa = formation_inputs(dtype)
-        ra = residual_inputs(dtype)
-        for name, kernel, plain in (
-                ("formation", lambda: ff.fused_formation(*fa),
-                 lambda: ff.reference_formation(*fa)),
-                ("residuals", lambda: fr.fused_residuals(*ra),
-                 lambda: fr.reference_residuals(*ra))):
-            ms[(name, dtype)] = (time_ms(kernel), time_ms(plain),
-                                 device_ms(kernel), device_ms(plain))
-    for (name, dtype), (k, p, dk, dp) in ms.items():
-        print(f"phase 5: {name} {dtype} at B={B} m={M} n={N}: kernel "
-              f"{k:.4f} ms, plain {p:.4f} ms per call; on the card alone "
-              f"(graph replay) kernel {dk:.4f} ms, plain {dp:.4f} ms")
+    """Time every kernel beside its plain version, the library route for the
+    same function and its bound: formation and residuals in float32 and
+    float64 (the residual kernel at each of RESIDUAL_BATCHES), the two KKT
+    kernels in float32 (the type the paths run them in), all at the bench
+    shape.  Returns the rows of the kernels line."""
+    t = {}
+    # the plain versions of these two are their library routes: cuBLAS
+    # batched GEMM, ATen elementwise and reduction kernels
+    for dtype in (F32, F64):
+        args = formation_inputs(dtype)
+        k = lambda: ff.fused_formation(*args)
+        p = lambda: ff.reference_formation(*args)
+        t[("formation", dtype, B)] = dict(
+            ms=time_ms(k), device_ms=device_ms(k), plain_ms=time_ms(p),
+            library_route_device_ms=device_ms(p))
+        for b in RESIDUAL_BATCHES:
+            t[("residuals", dtype, b)] = residual_times(fr, dtype, b)
+        for b in (None,) + RESIDUAL_BATCHES:
+            key = ("residuals", dtype, b) if b else ("formation", dtype, B)
+            print(f"phase 5: {key[0]} {dtype} at B={key[2]} m={M} n={N}: "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in t[key].items()
+                              if k != "B"))
 
     Q, A, w, sigma, rhs = kkt_inputs()
     Khat, bhat, dinv = scaled_system(fk, ff, Q, A, w, sigma, rhs)
@@ -456,7 +545,7 @@ def phase5(ff, fr, fk, tl):
     def kkt_library():
         K = ff.fused_formation(A, w, Q, sigma)
         chol, di = tl.jacobi_cholesky(K)
-        return tl._prescaled_tri_solver(chol, di, f32)(rhs)
+        return tl._prescaled_tri_solver(chol, di, F32)(rhs)
 
     def chol_library():
         chol = torch.linalg.cholesky_ex(Khat)[0]
@@ -467,7 +556,6 @@ def phase5(ff, fr, fk, tl):
     def timed(fn, reps):
         return time_ms(fn, reps=reps, warmup=max(2, reps // 10))
 
-    t = {}
     for name, kernel, plain, library, single in (
             ("kkt_solve", lambda: fk.fused_kkt_solve(Q, A, w, sigma, rhs),
              lambda: fk.reference_kkt_solve(Q, A, w, sigma, rhs),
@@ -477,44 +565,40 @@ def phase5(ff, fr, fk, tl):
              lambda: torch.linalg.solve(Khat, bhat))):
         k1, l1 = timed(kernel, 100), timed(library, 100)
         l2, k2 = timed(library, 100), timed(kernel, 100)
-        t[name] = dict(ms=min(k1, k2), device_ms=device_ms(kernel),
-                       plain_ms=timed(plain, 3),
-                       library_route_ms=min(l1, l2),
-                       library_route_device_ms=None,
-                       library_ms=None if single is None
-                       else timed(single, 100))
+        r = t[(name, F32, B)] = dict(
+            ms=min(k1, k2), device_ms=device_ms(kernel),
+            plain_ms=timed(plain, 3), library_route_ms=min(l1, l2),
+            library_route_device_ms=None,
+            library_ms=None if single is None else timed(single, 100))
         print(f"phase 5: {name} float32 at B={B} m={M} n={N}: kernel "
-              f"{t[name]['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), on the card "
-              f"alone {t[name]['device_ms']:.4f} ms, plain version "
-              f"{t[name]['plain_ms']:.2f} ms, library route (torch.linalg) "
-              f"{t[name]['library_route_ms']:.4f} ms ({l1:.4f}, {l2:.4f})"
+              f"{r['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), on the card alone "
+              f"{r['device_ms']:.4f} ms, plain version {r['plain_ms']:.2f} "
+              f"ms, library route (torch.linalg) {r['library_route_ms']:.4f}"
+              f" ms ({l1:.4f}, {l2:.4f})"
               + ("" if single is None else
-                 f", torch.linalg.solve {t[name]['library_ms']:.4f} ms"))
-    for name in ("formation", "residuals"):
-        k, p, dk, dp = ms[(name, f32)]
-        # the plain versions of these two are the library route: cuBLAS
-        # batched GEMM, ATen elementwise and reduction kernels
-        t[name] = dict(ms=k, device_ms=dk, plain_ms=p, library_route_ms=p,
-                       library_route_device_ms=dp, library_ms=None)
+                 f", torch.linalg.solve {r['library_ms']:.4f} ms"))
 
     # the work of one call, from the shapes: bytes with each input read and
-    # each output written once (4 bytes each), and the operations the
-    # function needs: K is symmetric, so its product is one multiply-add per
-    # row of A and entry on or above the diagonal, m * n * (n + 1) operations
-    work = {
-        "formation": (4 * (B * M * N + B * M + 2 * B * N * N + B),
-                      B * M * N * (N + 1)),
-        # 16 inputs and 6 outputs; about 22 operations per dual entry and
-        # 10 per primal entry
-        "residuals": (4 * (12 * B * M + 7 * B * N + 6 * B),
-                      22 * B * M + 10 * B * N),
-        # the symmetric product, Jacobi scale, n^3/3 factor, two n^2
-        # substitutions
-        "kkt_solve": (4 * (B * N * N + B * M * N + B * M + B + 2 * B * N),
-                      B * (M * N * (N + 1) + N ** 3 // 3 + 4 * N * N)),
-        "chol_solve": (4 * (B * N * N + 2 * B * N),
-                       B * (N ** 3 // 3 + 2 * N * N)),
-    }
+    # each output written once, and the operations the function needs: K is
+    # symmetric, so its product is one multiply-add per row of A and entry
+    # on or above the diagonal, m * n * (n + 1) operations
+    def work(name, dtype, b):
+        if name == "residuals":
+            return residual_bound(b, M, N, dtype)
+        size = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32 if dtype == F32 else PEAK_F64
+        nbytes, ops = {
+            "formation": (b * M * N + b * M + 2 * b * N * N + b,
+                          b * M * N * (N + 1)),
+            # the symmetric product, Jacobi scale, n^3/3 factor, two n^2
+            # substitutions
+            "kkt_solve": (b * N * N + b * M * N + b * M + b + 2 * b * N,
+                          b * (M * N * (N + 1) + N ** 3 // 3 + 4 * N * N)),
+            "chol_solve": (b * N * N + 2 * b * N,
+                           b * (N ** 3 // 3 + 2 * N * N)),
+        }[name]
+        return bound_ms(size * nbytes, ops, peak) + (size * nbytes,)
+
     meta = {
         "formation": ("qpdo_tpu_torch/csrc/formation.cu",
                       "qpdo_tpu/ops/pallas_formation.py:24",
@@ -531,22 +615,34 @@ def phase5(ff, fr, fk, tl):
                        "torch.linalg.cholesky_ex + 2 solve_triangular"),
     }
     rows = []
-    for name in ("formation", "residuals", "kkt_solve", "chol_solve"):
-        bms, by = bound_ms(*work[name])
-        print(f"phase 5: {name} float32: kernel {t[name]['ms']:.4f} ms "
-              f"(on the card alone {t[name]['device_ms']:.4f} ms), bound "
-              f"{bms:.5f} ms (by {by}: {work[name][0] / 1e6:.2f} MB, "
-              f"{work[name][1] / 1e9:.4f} GFLOP)")
-        rows.append({"name": name, "route": "cuda", "source": meta[name][0],
-                     "replaces": meta[name][1], "launches": 0,
-                     "max_abs_err": 0.0, "ms": t[name]["ms"],
-                     "device_ms": t[name]["device_ms"],
-                     "plain_ms": t[name]["plain_ms"], "bound_ms": bms,
-                     "bound_by": by, "library_ms": t[name]["library_ms"],
-                     "library_route_ms": t[name]["library_route_ms"],
-                     "library_route_device_ms":
-                         t[name]["library_route_device_ms"],
-                     "library_route": meta[name][2]})
+    for name, dtype in (("formation", F32), ("formation", F64),
+                        ("residuals", F32), ("residuals", F64),
+                        ("kkt_solve", F32), ("chol_solve", F32)):
+        batches = RESIDUAL_BATCHES if name == "residuals" else (B,)
+        sizes = []
+        for b in batches:
+            r = t[(name, dtype, b)]
+            r.setdefault("library_route_ms", r["plain_ms"])
+            r.setdefault("library_ms", None)
+            bms, by, nbytes = work(name, dtype, b)
+            print(f"phase 5: {name} {dtype} at B={b}: kernel {r['ms']:.4f} "
+                  f"ms (on the card alone {r['device_ms']:.4f} ms), bound "
+                  f"{bms:.5f} ms (by {by}: {nbytes / 1e6:.2f} MB)")
+            sizes.append(dict(r, B=b, bound_ms=bms, bound_by=by,
+                              bytes=nbytes))
+        r, first = t[(name, dtype, B)], sizes[0]
+        row = {"name": name, "dtype": str(dtype).replace("torch.", ""),
+               "route": "cuda", "source": meta[name][0],
+               "replaces": meta[name][1], "launches": 0, "max_abs_err": 0.0,
+               "ms": r["ms"], "device_ms": r["device_ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": first["bound_ms"],
+               "bound_by": first["bound_by"], "library_ms": r["library_ms"],
+               "library_route_ms": r["library_route_ms"],
+               "library_route_device_ms": r["library_route_device_ms"],
+               "library_route": meta[name][2]}
+        if len(sizes) > 1:
+            row["batches"] = sizes
+        rows.append(row)
     return rows
 
 
@@ -638,12 +734,36 @@ def reset_counts(*modules):
     for mod in modules:
         for fn in vars(mod).values():
             if callable(fn) and hasattr(fn, "launches"):
-                fn.launches = 0
+                fn.launches.clear()
+
+
+def launch_counts(ff, fr, fk):
+    """Launches since the last reset_counts, by (kernel, dtype)."""
+    counts = {}
+    for name, fn in (("formation", ff.fused_formation),
+                     ("residuals", fr.fused_residuals)):
+        for dtype in (F32, F64):
+            counts[(name, dtype)] = fn.launches[dtype]
+    counts[("kkt_solve", F32)] = fk.fused_kkt_solve.launches[F32]
+    counts[("chol_solve", F32)] = fk.chol_solve_stacked.launches[F32]
+    return counts
+
+
+def printable(counts):
+    return {f"{name} {str(dtype).replace('torch.', '')}": n
+            for (name, dtype), n in counts.items()}
+
+
+def require_launched(counts, what, *keys):
+    missing = [k for k in keys if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: a kernel of the path was not launched:"
+                             f" {printable(counts)}")
 
 
 def phase7(pt, ff, fr, fk, d, card):
-    """The second path at full width.  Returns the fused kernel's launches
-    in the cold solve and all counters of that solve."""
+    """The second path at full width.  Returns the launches of its cold
+    solve by (kernel, dtype)."""
     settings = pallas_kkt_settings(pt)
     problems = pt.Problem(**{k: torch.as_tensor(v, device=DEVICE)
                              for k, v in d.items()})
@@ -652,14 +772,11 @@ def phase7(pt, ff, fr, fk, d, card):
     res = pt.solve_batch(problems, settings, compact=True)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = {"formation": ff.fused_formation.launches,
-              "residuals": fr.fused_residuals.launches,
-              "kkt_solve": fk.fused_kkt_solve.launches,
-              "chol_solve": fk.chol_solve_stacked.launches}
-    print(f"phase 7: first solve {first_s:.2f} s, kernel launches {counts}")
-    if counts["kkt_solve"] <= 0 or counts["residuals"] <= 0:
-        raise AssertionError(f"phase 7: a kernel of the path was not "
-                             f"launched: {counts}")
+    counts = launch_counts(ff, fr, fk)
+    print(f"phase 7: first solve {first_s:.2f} s, kernel launches "
+          f"{printable(counts)}")
+    require_launched(counts, "phase 7", ("kkt_solve", F32),
+                     ("residuals", F64))
     check_solved(pt, d, res, "phase 7 (cold)")
 
     # the MPC re-solve: a perturbed cost, from the previous solution
@@ -686,7 +803,7 @@ def phase7(pt, ff, fr, fk, d, card):
           f"{B / np.mean(times):.2f}), solve times "
           f"{[round(t, 4) for t in times]} s, mean iterations "
           f"{res.info.iterations.float().mean().item():.2f}, on {card}")
-    return counts["kkt_solve"], counts
+    return counts
 
 
 def phase8(pt, fk):
@@ -697,7 +814,7 @@ def phase8(pt, fk):
                  pallas_kkt_settings(pt))
     if not on_card(solver._sp.data.Q):
         raise AssertionError("phase 8: setup() did not default to the card")
-    before = fk.fused_kkt_solve.launches
+    before = fk.fused_kkt_solve.launches[F32]
     res = solver.solve()
     batch = lambda dd: {k: np.asarray(v)[None] for k, v in dd.items()}
     check_solved(pt, batch(d), res, "phase 8 (setup, solve)")
@@ -712,9 +829,9 @@ def phase8(pt, fk):
                  "phase 8 (warm_start, update_q, update_bounds, solve)")
     print(f"phase 8: iterations {int(res.info.iterations)} then "
           f"{int(res2.info.iterations)}, fused KKT kernel launches "
-          f"{fk.fused_kkt_solve.launches - before}, solve time "
+          f"{fk.fused_kkt_solve.launches[F32] - before}, solve time "
           f"{float(res2.info.solve_time):.3f} s")
-    if fk.fused_kkt_solve.launches <= before:
+    if fk.fused_kkt_solve.launches[F32] <= before:
         raise AssertionError("phase 8: the fused kernel was not launched")
 
 

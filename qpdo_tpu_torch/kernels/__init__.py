@@ -42,7 +42,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # dtypes it exists for); the stream comes last
 _KERNELS = {
     "formation": (5, 3, (torch.float32, torch.float64)),    # B, m, n
-    "residuals": (22, 3, (torch.float32, torch.float64)),   # B, m, n
+    "residuals": (17, 3, (torch.float32, torch.float64)),   # B, m, n
     "kkt_solve": (6, 3, (torch.float32,)),                  # B, m, n
     "chol_solve": (3, 2, (torch.float32,)),                 # B, n
 }
@@ -123,12 +123,15 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
     except OSError as e:
         raise KernelError(f"cannot load {out}: {e}") from e
+    # (name, dtype) -> (entry point, pointer arguments, int arguments)
+    lib.entries = {}
     for name, (pointers, ints, dtypes) in _KERNELS.items():
         for dtype in dtypes:
             fn = getattr(lib, f"qpdo_{name}_{_SUFFIX[dtype]}")
             fn.argtypes = ([ctypes.c_void_p] * pointers
                            + [ctypes.c_int] * ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            lib.entries[(name, dtype)] = (fn, pointers, ints)
     for name in ("kkt_solve", "chol_solve"):
         fn = getattr(lib, f"qpdo_{name}_max_n")
         fn.argtypes = []
@@ -138,22 +141,26 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, dtype: torch.dtype, device: torch.device,
-           tensors, sizes) -> None:
-    """Launch kernel ``name`` for ``dtype`` on the current stream of
-    ``device``: ``tensors`` become pointers, ``sizes`` (B, m, n; B, n for
-    chol_solve) C ints."""
-    pointers, ints, dtypes = _KERNELS[name]
-    if dtype not in dtypes:
-        raise KernelError(f"{name}: no kernel for dtype {dtype}")
+def launch(name: str, dtype: torch.dtype, tensors, sizes) -> None:
+    """Launch kernel ``name`` for ``dtype`` on the current stream of the
+    CUDA device that holds ``tensors``: they become pointers, ``sizes``
+    (B, m, n; B, n for chol_solve) C ints.  The device is made current
+    only for the launch, and only where it is not already."""
+    lib = library()
+    try:
+        fn, pointers, ints = lib.entries[(name, dtype)]
+    except KeyError:
+        raise KernelError(f"{name}: no kernel for dtype {dtype}") from None
     if len(tensors) != pointers or len(sizes) != ints:
         raise KernelError(f"{name}: takes {pointers} tensors and {ints} sizes,"
                           f" got {len(tensors)} and {len(sizes)}")
-    lib = library()
-    fn = getattr(lib, f"qpdo_{name}_{_SUFFIX[dtype]}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *sizes, stream)
+    index = tensors[0].get_device()
+    ptrs = [t.data_ptr() for t in tensors]
+    if index == torch.cuda.current_device():
+        err = fn(*ptrs, *sizes, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, *sizes, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise KernelError(f"{name} kernel launch failed: CUDA error {err} "
                           f"({lib.qpdo_error_string(err).decode()})")

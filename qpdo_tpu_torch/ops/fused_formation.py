@@ -12,6 +12,8 @@ goes through this one kernel.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .. import kernels
@@ -43,8 +45,9 @@ def _check(A, w, Q, sigma):
 def fused_formation(A, w, Q, sigma):
     """K = A' diag(w) A + Q + sigma*I for A (B, m, n), w (B, m),
     Q (B, n, n), sigma (B,), all of one dtype (float32 or float64) on one
-    device.  CUDA tensors launch the kernel (and count the launch in
-    ``fused_formation.launches``); CPU tensors take the plain version."""
+    device.  CUDA tensors launch the kernel (and count the launch, by
+    dtype, in the Counter ``fused_formation.launches``); CPU tensors take
+    the plain version."""
     B, m, n = _check(A, w, Q, sigma)
     if A.device.type == "cpu":
         return reference_formation(A, w, Q, sigma)
@@ -56,10 +59,9 @@ def fused_formation(A, w, Q, sigma):
         if not t.is_contiguous():
             raise ValueError(f"fused_formation: {name} must be contiguous")
     K = torch.empty((B, n, n), dtype=A.dtype, device=A.device)
-    kernels.launch("formation", A.dtype, A.device, (A, w, Q, sigma, K),
-                   (B, m, n))
-    fused_formation.launches += 1
+    kernels.launch("formation", A.dtype, (A, w, Q, sigma, K), (B, m, n))
+    fused_formation.launches[A.dtype] += 1
     return K
 
 
-fused_formation.launches = 0
+fused_formation.launches = collections.Counter()

@@ -30,6 +30,8 @@ solver; it is the second half of ``fused_kkt_solve`` on its own.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .. import kernels
@@ -123,8 +125,8 @@ def _launch(name, wrapper, tensors, sizes, n):
             "block can use")
     args = [t.to(_F32).contiguous() for t in tensors]
     out = torch.empty((args[0].shape[0], n), dtype=_F32, device=args[0].device)
-    kernels.launch(name, _F32, out.device, (*args, out), sizes)
-    wrapper.launches += 1
+    kernels.launch(name, _F32, (*args, out), sizes)
+    wrapper.launches[_F32] += 1
     return out
 
 
@@ -133,8 +135,8 @@ def fused_kkt_solve(Q, A, w, sigma, rhs):
     the Jacobi-prescaled, shifted Cholesky above.  Q (B, n, n), A
     (B, m, n), w (B, m), sigma (B,), rhs (B, n) on one device; inputs are
     cast to float32 and dx (B, n) is float32.  CUDA tensors launch the
-    kernel (and count the launch in ``fused_kkt_solve.launches``); CPU
-    tensors take the plain version."""
+    kernel (and count the launch, by dtype, in the Counter
+    ``fused_kkt_solve.launches``); CPU tensors take the plain version."""
     if A.dim() != 3:
         raise ValueError(f"fused_kkt_solve: A must be (B, m, n), got "
                          f"{tuple(A.shape)}")
@@ -147,7 +149,7 @@ def fused_kkt_solve(Q, A, w, sigma, rhs):
                    (B, m, n), n)
 
 
-fused_kkt_solve.launches = 0
+fused_kkt_solve.launches = collections.Counter()
 
 
 def chol_solve_stacked(K, rhs):
@@ -155,7 +157,7 @@ def chol_solve_stacked(K, rhs):
     instance a Jacobi-prescaled KKT matrix; only the upper triangle is
     read) and rhs (B, n), by the kernel's Cholesky and substitutions with
     pivots and divisors clamped at 1e-30.  Cast to float32, dx float32.
-    CUDA tensors launch the kernel (counted in
+    CUDA tensors launch the kernel (counted, by dtype, in the Counter
     ``chol_solve_stacked.launches``); CPU tensors take the plain version."""
     if K.dim() != 3 or K.shape[-1] != K.shape[-2]:
         raise ValueError(f"chol_solve_stacked: K must be (B, n, n), got "
@@ -168,4 +170,4 @@ def chol_solve_stacked(K, rhs):
     return _launch("chol_solve", chol_solve_stacked, (K, rhs), (B, n), n)
 
 
-chol_solve_stacked.launches = 0
+chol_solve_stacked.launches = collections.Counter()

@@ -69,6 +69,7 @@ def _run_compact(sp_b: ScaledProblem, stg: Settings, state: SolverState,
     B = state.x.shape[0]
     K = max(1, B // 4)
     mixed = core.mixed_mode(stg, op.dtype)
+    out = core.residual_outputs(state)
 
     def active_of(st):
         return (st.status == _c.UNSOLVED) & (st.iter < iter_cap)
@@ -76,7 +77,7 @@ def _run_compact(sp_b: ScaledProblem, stg: Settings, state: SolverState,
     def masked_step(st):
         # problems at the iteration cap are frozen explicitly (core.step
         # only freezes status-latched ones)
-        return core.masked(core.step(op, stg, st), st, active_of(st))
+        return core.masked(core.step(op, stg, st, out), st, active_of(st))
 
     refresh = None
     if mixed:

@@ -19,7 +19,7 @@ import torch
 from .. import constants as _c
 from ..operators import DenseOperator
 from ..ops.batched import bwhere, dot, norm_inf
-from ..ops.fused_residuals import fused_residuals
+from ..ops.fused_residuals import fused_residuals, kernel_outputs
 from ..ops.linalg import resolve_dtype
 from ..ops.linesearch import exact_linesearch
 from ..types import Info, Result, ScaledProblem, Settings, SolverState
@@ -159,8 +159,18 @@ def outer_residuals(op, y, Qx, Ax, Aty):
     return res_prim, res_dual, rp, rd
 
 
+def residual_outputs(s: SolverState):
+    """Buffers for the residual block of every step of a loop over the
+    batch of ``s`` (``step``'s ``residual_out``).  A step reads its
+    residual outputs only while it runs, and ``masked`` copies whatever of
+    them the state keeps, so each step may overwrite the last one's."""
+    B, n = s.x.shape
+    return kernel_outputs(B, s.y.shape[1], n, s.x.dtype, s.x.device)
+
+
 @_with_matmul_precision
-def step(op, settings: Settings, s: SolverState) -> SolverState:
+def step(op, settings: Settings, s: SolverState,
+         residual_out=None) -> SolverState:
     op = as_operator(op)
     dt = op.dtype
     one = torch.ones((), dtype=dt, device=op.device)
@@ -176,13 +186,15 @@ def step(op, settings: Settings, s: SolverState) -> SolverState:
         raise NotImplementedError("Settings.fused_newton_rhs is not ported yet")
 
     # The whole residual block in one launch (ops/fused_residuals.py; the
-    # kernel on a CUDA tensor whatever the flag, see types.py).
+    # kernel on a CUDA tensor whatever the flag, see types.py), into the
+    # loop's buffers where it hands them in (residual_outputs).
     sig_eff = sigma if settings.proximal else torch.zeros_like(sigma)
     (res_prim, res_prim_in, w, active, res_dual_in,
      res_prim_norm, res_dual_norm, res_prim_in_norm,
      res_dual_in_norm) = fused_residuals(
          s.Ax, s.y, s.mu, s.ybar, op.l, op.u, op.E, op.Einv,
-         s.Qx, op.q, s.Aty, s.x, s.xbar, op.Dinv, sig_eff, cinv)
+         s.Qx, op.q, s.Aty, s.x, s.xbar, op.Dinv, sig_eff, cinv,
+         out=residual_out)
     if settings.pallas_residuals:
         # the fused branch of core.py:205-207: df recovered from the kernel
         df = res_dual_in - s.Aty
@@ -479,10 +491,12 @@ def run_loop(op, settings: Settings, s: SolverState,
     op = as_operator(op)
     mixed = mixed_mode(settings, op.dtype)
     K = settings.anchor_every
+    out = residual_outputs(s)
     if not mixed and s.kkt_cache is None:
         while bool(_loop_active(s, iter_cap).any()):
             for _ in range(K):
-                s = masked(step(op, settings, s), s, _loop_active(s, iter_cap))
+                s = masked(step(op, settings, s, out), s,
+                           _loop_active(s, iter_cap))
         return s
 
     refresh = reanchor if mixed else rebuild_kkt_cache
@@ -492,7 +506,7 @@ def run_loop(op, settings: Settings, s: SolverState,
             return s
         end = torch.clamp(s.iter + K, max=iter_cap)
         for _ in range(K):
-            s = masked(step(op, settings, s), s, _loop_active(s, end))
+            s = masked(step(op, settings, s, out), s, _loop_active(s, end))
         s = masked(refresh(op, settings, s), s, began)
 
 

@@ -58,9 +58,9 @@ def profile(name: str) -> None:
     steps = collections.Counter()
     step = core.step
 
-    def counting_step(op, stg, s):
+    def counting_step(op, stg, s, *rest):
         steps[(str(s.x.dtype).replace("torch.", ""), s.x.shape[0])] += 1
-        return step(op, stg, s)
+        return step(op, stg, s, *rest)
 
     core.step = counting_step
     try:
@@ -71,9 +71,11 @@ def profile(name: str) -> None:
     finally:
         core.step = step
     n_steps = sum(steps.values())
-    counts = {"formation": ff.fused_formation.launches,
-              "residuals": fr.fused_residuals.launches,
-              "kkt_solve": fk.fused_kkt_solve.launches}
+    counts = {name: {str(dtype).replace("torch.", ""): n
+                     for dtype, n in fn.launches.items()}
+              for name, fn in (("formation", ff.fused_formation),
+                               ("residuals", fr.fused_residuals),
+                               ("kkt_solve", fk.fused_kkt_solve))}
     print(f"{name}: unprofiled solve {wall:.4f} s, {cs.B / wall:.2f} QPs/s, "
           f"mean iterations {res.info.iterations.float().mean().item():.2f},"
           f" {n_steps} masked steps {dict(steps)}, {wall / n_steps * 1e3:.2f}"

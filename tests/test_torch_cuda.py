@@ -8,7 +8,7 @@ conftest:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (formation: 1e-5 f32 / 1e-12 f64 relative to max|K|; residuals:
-elementwise rtol 1e-6 f32 / 1e-13 f64, ``active`` equal), and a small batch
+bit for bit), and a small batch
 solved on the card must agree with the same solve on the CPU.  The two KKT
 kernels are held in tests/test_torch_cuda_kkt.py.
 """
@@ -44,10 +44,10 @@ def _formation_args(device, dtype, B=8, m=150, n=100, seed=0):
 @pytest.mark.parametrize("dtype,ftol,rtol", DTYPES)
 def test_formation_kernel_matches_plain(device, dtype, ftol, rtol):
     args = _formation_args(device, dtype)
-    before = ff.fused_formation.launches
+    before = ff.fused_formation.launches[dtype]
     K = ff.fused_formation(*args)
     ref = ff.reference_formation(*args)
-    assert ff.fused_formation.launches == before + 1
+    assert ff.fused_formation.launches[dtype] == before + 1
     assert K.is_cuda and K.dtype == dtype
     assert ((K - ref).abs().max() / ref.abs().max()).item() <= ftol
 
@@ -79,10 +79,20 @@ def test_formation_kernel_mirrors_with_a_nonsymmetric_q(device, dtype, ftol,
         assert ((K1 - ref).abs().max() / ref.abs().max()).item() <= ftol
 
 
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
 @pytest.mark.parametrize("dtype,ftol,rtol", DTYPES)
-def test_residual_kernel_matches_plain(device, dtype, ftol, rtol):
-    rng = np.random.default_rng(1)
-    B, m, n = 8, 150, 100
+@pytest.mark.parametrize("B,m,n", [(8, 150, 100), (1, 150, 100),
+                                   (5, 37, 19), (3, 23, 301),
+                                   (4096, 150, 100)])
+def test_residual_kernel_matches_plain(device, dtype, ftol, rtol, B, m, n):
+    """Bit for bit (the kernel rounds each operation as the plain version
+    does, in the same order): one problem, ragged m and n (one entry a
+    load, more entries than 256 threads take at once) and a batch large
+    enough that the grid strides over groups of problems; also into
+    buffers handed in, as the solver loop does."""
+    rng = np.random.default_rng(B + m)
     E = rng.random((B, m)) + 0.5
     d = lambda *s: rng.standard_normal(s)
     arrays = (d(B, m), d(B, m), rng.random((B, m)) + 0.1, d(B, m),
@@ -91,13 +101,21 @@ def test_residual_kernel_matches_plain(device, dtype, ftol, rtol):
               rng.random((B, n)) + 0.5, rng.random(B) * 0.1,
               rng.random(B) + 0.5)
     args = [torch.as_tensor(a, dtype=dtype, device=device) for a in arrays]
-    before = fr.fused_residuals.launches
+    before = fr.fused_residuals.launches[dtype]
     out = fr.fused_residuals(*args)
     ref = fr.reference_residuals(*args)
-    assert fr.fused_residuals.launches == before + 1
-    assert torch.equal(out[3], ref[3])            # active
-    for a, b in zip(out, ref):
-        assert bool(((a - b).abs() <= rtol * b.abs()).all())
+    assert fr.fused_residuals.launches[dtype] == before + 1
+    buffers = fr.kernel_outputs(B, m, n, dtype, device)
+    into = fr.fused_residuals(*args, out=buffers)
+    assert all(a is b for a, b in zip(into, buffers[1]))
+    for a, c, b in zip(out, into, ref):
+        assert a.is_cuda and a.is_contiguous() and a.shape == b.shape
+        assert torch.equal(a.view(_BITS[dtype]), b.view(_BITS[dtype]))
+        assert torch.equal(c.view(_BITS[dtype]), b.view(_BITS[dtype]))
+    # a non-contiguous argument is refused, not read with the wrong strides
+    args[11] = torch.zeros((B, 2 * n), dtype=dtype, device=device)[:, ::2]
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        fr.fused_residuals(*args)
 
 
 def test_residual_norms_propagate_nan_per_problem(device):

@@ -53,10 +53,10 @@ def _rel(a, b):
                                    (260, 150, 100)])
 def test_kkt_solve_kernel_matches_plain(device, B, m, n):
     args = _kkt_args(device, B, m, n)
-    before = fk.fused_kkt_solve.launches
+    before = fk.fused_kkt_solve.launches[torch.float32]
     dx = fk.fused_kkt_solve(*args)
     ref = fk.reference_kkt_solve(*args)
-    assert fk.fused_kkt_solve.launches == before + 1
+    assert fk.fused_kkt_solve.launches[torch.float32] == before + 1
     assert dx.is_cuda and dx.dtype == torch.float32 and dx.shape == (B, n)
     assert _rel(dx, ref) <= 1e-4
     # float64 inputs are cast, not refused
@@ -75,9 +75,9 @@ def test_chol_solve_kernel_matches_plain_and_the_fused_solve(device, B, n):
     eye = torch.eye(n, device=device)
     Khat = (K * dinv[:, :, None] * dinv[:, None, :]
             + fk._static_reg32() * eye).contiguous()
-    before = fk.chol_solve_stacked.launches
+    before = fk.chol_solve_stacked.launches[torch.float32]
     x = fk.chol_solve_stacked(Khat, rhs * dinv)
-    assert fk.chol_solve_stacked.launches == before + 1
+    assert fk.chol_solve_stacked.launches[torch.float32] == before + 1
     assert _rel(x, fk.reference_chol_solve(Khat, rhs * dinv)) <= 1e-4
     assert torch.equal(x, fk.chol_solve_stacked(Khat, rhs * dinv))
     if n <= kernels.max_n("kkt_solve"):
@@ -122,12 +122,12 @@ def test_pallas_kkt_solve_on_card_matches_cpu(device):
              l=-rng.random((B, m)), u=rng.random((B, m)), c=np.zeros(B))
     settings = pt.Settings(kkt_dtype="float32", mu_min=1e-7, refine_steps=2,
                            pallas_kkt=True, pallas_residuals=True)
-    before = fk.fused_kkt_solve.launches
+    before = fk.fused_kkt_solve.launches[torch.float32]
     res = {dev: pt.solve_batch(pt.Problem(**{
         k: torch.as_tensor(v, device=dev) for k, v in d.items()}),
         settings, compact=True) for dev in (device, torch.device("cpu"))}
     card, cpu = res[device], res[torch.device("cpu")]
-    assert fk.fused_kkt_solve.launches > before
+    assert fk.fused_kkt_solve.launches[torch.float32] > before
     assert card.x.is_cuda
     assert torch.all(card.info.status_val == pt.SOLVED)
     assert torch.all(cpu.info.status_val == pt.SOLVED)

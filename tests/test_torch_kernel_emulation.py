@@ -2,15 +2,16 @@
 
 ``tests/torch_cuda_stub/cuda_runtime.h`` stands in for the CUDA runtime: one
 ``std::thread`` per CUDA thread, ``__syncthreads`` and the warp shuffles on
-``std::barrier``.  This file rewrites the ``<<<...>>>`` launches and the
-``extern __shared__`` arrays of ``formation.cu`` and ``kkt_solve.cu``, builds
-them with ``g++ -std=c++20`` into one shared library, calls its C entry
-points on CPU tensors and holds the results against the plain PyTorch
-versions: formation to 1e-5 (float32) and 1e-12 (float64) of max|K|, the two
-KKT kernels to 2e-5 of max|dx| (the tolerances of chip_smoke.py's phases 2
-and 6).  It checks indexing, barriers and arithmetic, not speed; on the card
-the same sources are held by tests/test_torch_cuda*.py.  Skipped where g++
-is missing.
+``std::barrier``.  ``build`` rewrites the ``<<<...>>>`` launches and the
+``extern __shared__`` arrays of the sources it is given, builds them with
+``g++ -std=c++20`` into one shared library and binds their C entry points.
+This file builds ``formation.cu`` and ``kkt_solve.cu``, calls them on CPU
+tensors and holds the results against the plain PyTorch versions: formation
+to 1e-5 (float32) and 1e-12 (float64) of max|K|, the two KKT kernels to 2e-5
+of max|dx| (the tolerances of chip_smoke.py's phases 2 and 6);
+tests/test_torch_residuals_emulation.py builds ``residuals.cu``.  They check
+indexing, barriers and arithmetic, not speed; on the card the same sources
+are held by tests/test_torch_cuda*.py.  Skipped where g++ is missing.
 """
 
 import ctypes
@@ -28,7 +29,9 @@ from qpdo_tpu_torch.ops import fused_formation as ff
 from qpdo_tpu_torch.ops import fused_kkt as fk
 
 STUB = Path(__file__).resolve().parent / "torch_cuda_stub"
-EMULATED = ("formation.cu", "kkt_solve.cu")
+# the source that holds each kernel's entry points
+SOURCE_OF = {"formation": "formation.cu", "residuals": "residuals.cu",
+             "kkt_solve": "kkt_solve.cu", "chol_solve": "kkt_solve.cu"}
 
 _LAUNCH = re.compile(r"(\b[\w:]+(?:<[^<>;]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", re.S)
 _SHARED = re.compile(
@@ -36,44 +39,52 @@ _SHARED = re.compile(
 
 
 def rewrite(text: str) -> str:
-    """CUDA launch syntax and dynamic shared arrays as plain C++."""
+    """CUDA launch syntax and dynamic shared arrays as plain C++
+    (``cudaLaunchKernelEx`` is the stub's own)."""
     def launch(m):
         grid, block, nbytes, _stream = [p.strip() for p in m.group(2).split(",")]
         return (f"cuda_stub::launch({grid}, {block}, {nbytes}, "
                 f"[&] {{ {m.group(1)}({m.group(3)}); }});")
 
     text, n = _LAUNCH.subn(launch, text)
-    assert n > 0, "no kernel launch found"
+    assert n > 0 or "cudaLaunchKernelEx(" in text, "no kernel launch found"
     return _SHARED.sub(r"\1* \2 = reinterpret_cast<\1*>("
                        r"cuda_stub::shared_memory());", text)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build(tmp: Path, sources) -> ctypes.CDLL:
+    """The CUDA ``sources`` built for the CPU into one library in ``tmp``,
+    the entry points of their kernels bound as in ``qpdo_tpu_torch.kernels``
+    (no contraction into FMAs: the sources round every operation as
+    written where they ask for it)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the CUDA sources for the CPU")
-    tmp = tmp_path_factory.mktemp("emulated_kernels")
-    sources = [str(STUB / "stub_runtime.cpp")]
-    for name in EMULATED:
+    files = [str(STUB / "stub_runtime.cpp")]
+    for name in sources:
         out = tmp / (Path(name).stem + ".cpp")
         out.write_text(rewrite((kernels.CSRC / name).read_text()))
-        sources.append(str(out))
+        files.append(str(out))
     so = tmp / "libqpdo_emulated.so"
-    cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-           f"-I{STUB}", f"-I{kernels.CSRC}", "-o", str(so), *sources]
+    cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+           "-pthread", f"-I{STUB}", f"-I{kernels.CSRC}", "-o", str(so), *files]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
     ptr, i = ctypes.c_void_p, ctypes.c_int
     for name, (pointers, ints, dtypes) in kernels._KERNELS.items():
-        if name == "residuals":
-            continue
-        for dt in dtypes:
-            fn = getattr(lib, f"qpdo_{name}_{kernels._SUFFIX[dt]}")
-            fn.argtypes = [ptr] * pointers + [i] * ints + [ptr]
-            fn.restype = i
+        if SOURCE_OF[name] in sources:
+            for dt in dtypes:
+                fn = getattr(lib, f"qpdo_{name}_{kernels._SUFFIX[dt]}")
+                fn.argtypes = [ptr] * pointers + [i] * ints + [ptr]
+                fn.restype = i
     return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return build(tmp_path_factory.mktemp("emulated_kernels"),
+                 ("formation.cu", "kkt_solve.cu"))
 
 
 def _call(lib, name, tensors, out, sizes):

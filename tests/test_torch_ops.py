@@ -33,7 +33,7 @@ from qpdo_tpu_torch.operators import DenseOperator
 from qpdo_tpu_torch.ops import linalg as tlinalg
 from qpdo_tpu_torch.ops import linesearch as tls
 from qpdo_tpu_torch.ops.fused_formation import fused_formation
-from qpdo_tpu_torch.ops.fused_residuals import fused_residuals
+from qpdo_tpu_torch.ops.fused_residuals import fused_residuals, kernel_outputs
 from qpdo_tpu_torch.solver.scaling import scale_problem
 
 DTYPES = {"float32": (np.float32, torch.float32),
@@ -145,6 +145,42 @@ def test_wrappers_check_their_arguments():
         fused_formation(A, w, Q, torch.zeros(3, dtype=torch.float64))
     with pytest.raises(ValueError, match="w is"):
         fused_formation(A, w.float(), Q, torch.zeros(2, dtype=torch.float64))
+
+
+def _bad_residual_args(case):
+    args = [_t(a) for a in _residual_inputs(3, 4, 5, np.float64, seed=2)]
+    if case == "scalar shape":
+        args[14] = args[14][:2]                      # sigma (2,), B = 3
+    elif case == "primal shape":
+        args[10] = torch.zeros((3, 6), dtype=torch.float64)      # Aty
+    elif case == "dual dtype":
+        args[5] = args[5].float()                    # u
+    elif case == "device":
+        args[7] = torch.empty((3, 5), dtype=torch.float64, device="meta")
+    elif case == "unsupported device":
+        args = [a.to("meta") for a in args]
+    elif case == "rank":
+        args[0] = args[0][None]
+    elif case == "out":
+        return args, kernel_outputs(3, 4, 5, torch.float64, "cpu")
+    return args, None
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("scalar shape", ValueError, r"sigma must be \(3,\)"),
+    ("primal shape", ValueError, r"Aty must be \(3, 4\)"),
+    ("dual dtype", ValueError, "u is torch.float32"),
+    ("device", ValueError, "Einv is torch.float64 on meta"),
+    ("unsupported device", ValueError, "unsupported device meta"),
+    ("rank", ValueError, r"Ax must be \(B, m\)"),
+    ("out", ValueError, r"out must be kernel_outputs\(3, 5, 4\)"),
+])
+def test_residual_wrapper_checks_its_arguments(case, error, match):
+    """Every bad argument raises before anything runs (the card test adds
+    a non-contiguous one, which only the kernel's path refuses)."""
+    args, out = _bad_residual_args(case)
+    with pytest.raises(error, match=match):
+        fused_residuals(*args, out=out)
 
 
 def test_kernel_build_without_nvcc_raises_a_clear_error(monkeypatch, tmp_path):
