@@ -63,16 +63,39 @@ Phases (any failure raises and exits non-zero):
 8. The stateful entry point: ``QPDO().setup(...)`` of one n=100, m=150
    problem with no device argument (so the card), solve, warm_start,
    update_q, update_bounds, solve; results on the card, same oracle.
+9. The dense modes at full width (the bench family, B=256, n=100, m=150,
+   seed 0; ``variants``): the bench settings with polish (and warmup_eps
+   1e-3), with ``kkt_solver`` "inv", with "cg", with the incremental KKT
+   cache (``kkt_update_rows=16``), with the fused right-hand side, with
+   the chunked bisection; the phase 7 settings with the fused right-hand
+   side (kernel 3); the library-default float64 ``Settings()`` with
+   "inv", with "cg" and with ``accel_gamma=0.5`` (the float64 formation
+   kernel; both "cg" variants at B=64: each took more than 30 s at
+   B=256).  Each through ``solve_batch(..., compact=True)``, kernel
+   counts set to 0 just before and read just after: every problem SOLVED
+   with the oracle at 1.1e-6, the kernels its line names launched, and the
+   16-problem batch of phase 4 on the card and on the CPU with equal
+   statuses and iterations within 3, except on the problems of
+   ``ROUNDING_SENSITIVE``, whose counts rounding moves by more than 3 in
+   the JAX package or the port on the CPU: those are held to their status.
+10. The host-driven loop: problem 0 of the family through ``QPDO`` with
+   the phase 7 settings, three ways: ``verbose=True, print_interval=10``
+   (the table is printed; the same iterations as the silent solve),
+   ``eps_abs=1e-14, max_time=1e-3`` (MAX_TIME_REACHED) and
+   ``max_time=60`` (SOLVED, the silent solve's iterations).
 
 The line before the last is a JSON object with one entry per kernel and
-dtype (formation and residuals in both dtypes; the float64 formation
-kernel, which no path runs, with 0 launches), with its launches on each
-path; the last line is {"ok": true, "device": {...}}.  Without a CUDA
-device the script exits non-zero before printing any result.
+dtype (formation and residuals in both dtypes), with its launches on the
+path that runs it first and on each path; the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device the script exits
+non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -498,14 +521,24 @@ def main() -> int:
     # ---- phase 8: the stateful entry point, on the card by default ----
     phase8(pt, fk)
 
+    # ---- phase 9: the dense modes at full width ----
+    path_launches.update(phase9(pt, ff, fr, fk, d, card))
+
+    # ---- phase 10: the host-driven loop ----
+    path_launches["driver"] = phase10(pt, ff, fr, fk, d)
+
     # ---- phase 5: time per call: kernel, plain version, library route ----
     rows = phase5(ff, fr, fk, tl)
     # each kernel's launches on the path that drives it first
-    first_path = {"formation": "bench_ns", "residuals": "bench_ns",
-                  "kkt_solve": "pallas_kkt", "chol_solve": "composition"}
+    first_path = {("formation", F32): "bench_ns",
+                  ("formation", F64): "default_inv",
+                  ("residuals", F32): "bench_ns",
+                  ("residuals", F64): "bench_ns",
+                  ("kkt_solve", F32): "pallas_kkt",
+                  ("chol_solve", F32): "composition"}
     for r in rows:
         key = (r["name"], getattr(torch, r["dtype"]))
-        r["launches"] = path_launches[first_path[r["name"]]][key]
+        r["launches"] = path_launches[first_path[key]][key]
         r["max_abs_err"] = max_err[key]
         r["launches_by_path"] = {path: counts[key]
                                  for path, counts in path_launches.items()}
@@ -833,6 +866,131 @@ def phase8(pt, fk):
           f"{float(res2.info.solve_time):.3f} s")
     if fk.fused_kkt_solve.launches[F32] <= before:
         raise AssertionError("phase 8: the fused kernel was not launched")
+
+
+# Problems of phase 9's small batch whose iteration counts differ by more
+# than 3 between the JAX package and the port on the CPU, or move by more
+# than 3 in either package when A changes by one part in 1e15
+# (scripts/phase9_reference.py, 12 draws for the default_* variants, 4
+# for the others): the variant's path moves with rounding there, so the
+# card is held to their status, not their count.
+ROUNDING_SENSITIVE = {"bench_incremental": (8, 10),
+                      "default_inv": (3, 8, 11, 13),
+                      "default_cg": (0, 4, 5, 6, 8, 9, 10, 11, 12, 13, 14,
+                                     15)}
+
+
+def variants(pt):
+    """Phase 9: (name, settings, batch size, kernels that must launch)."""
+    bench, pkkt, lib = bench_settings(pt), pallas_kkt_settings(pt), pt.Settings()
+    mixed = (("formation", F32), ("residuals", F32), ("residuals", F64))
+    f64 = (("formation", F64), ("residuals", F64))
+    return [
+        ("bench_polish", bench.replace(polish=True, warmup_eps=1e-3), B, mixed),
+        ("bench_inv", bench.replace(kkt_solver="inv"), B, mixed),
+        # bench_cg and default_cg each took more than 30 s at B=256 (33.2
+        # and 37.6 s in one run each on the H100): B=64 keeps the phase
+        # inside its time
+        ("bench_cg", bench.replace(kkt_solver="cg"), 64, mixed),
+        ("bench_incremental",
+         bench.replace(kkt_solver="chol", kkt_update_rows=16), B, mixed),
+        ("bench_fused_rhs",
+         bench.replace(kkt_solver="chol", fused_newton_rhs=True), B, mixed),
+        ("bench_bisect_chunk", bench.replace(linesearch="bisect_chunk"), B,
+         mixed),
+        ("pallas_kkt_fused_rhs", pkkt.replace(fused_newton_rhs=True), B,
+         (("kkt_solve", F32), ("residuals", F64))),
+        ("default_inv", lib.replace(kkt_solver="inv"), B, f64),
+        ("default_cg", lib.replace(kkt_solver="cg"), 64, f64),
+        ("default_accel", lib.replace(accel_gamma=0.5), B, f64),
+    ]
+
+
+def phase9(pt, ff, fr, fk, d, card):
+    """Every variant at full width: the gate of phase 4 and its launches.
+    Returns the launches of each variant's solve by (kernel, dtype)."""
+    ds = bench_problems(16, 40, 60, seed=1)
+    out = {}
+    for name, settings, b, kernels_of_path in variants(pt):
+        db = {k: v[:b] for k, v in d.items()}
+        problems = pt.Problem(**{k: torch.as_tensor(v, device=DEVICE)
+                                 for k, v in db.items()})
+        torch.cuda.synchronize()
+        reset_counts(ff, fr, fk)
+        t0 = time.perf_counter()
+        res = pt.solve_batch(problems, settings, compact=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = out[name] = launch_counts(ff, fr, fk)
+        what = f"phase 9: {name}" + ("" if b == B else f" (B={b})")
+        check_solved(pt, db, res, what)
+        print(f"{what}: one solve {wall:.3f} s, kernel launches "
+              f"{printable(counts)}, on {card}", flush=True)
+        require_launched(counts, what, *kernels_of_path)
+        small = {dev: pt.solve_batch(pt.Problem(**{
+            k: torch.as_tensor(v, device=dev) for k, v in ds.items()}),
+            settings, compact=True) for dev in (DEVICE, "cpu")}
+        st = {dev: r.info.status_val.cpu().numpy() for dev, r in small.items()}
+        it = {dev: r.info.iterations.cpu().numpy().astype(int)
+              for dev, r in small.items()}
+        diff = np.abs(it[DEVICE] - it["cpu"])
+        loose = ROUNDING_SENSITIVE.get(name, ())
+        gap = int(np.delete(diff, loose).max())
+        print(f"{what}: small batch card vs CPU: statuses "
+              f"{'equal' if np.array_equal(st[DEVICE], st['cpu']) else 'DIFFER'}"
+              f", max iteration difference {gap}"
+              + (f" (problems {list(loose)}, held to their status: rounding "
+                 f"moves their counts by more than 3 on the CPU)"
+                 if loose else "")
+              + f"; differences {diff.tolist()}", flush=True)
+        if not (np.array_equal(st[DEVICE], st["cpu"]) and gap <= 3):
+            raise AssertionError(f"{what}: card and CPU disagree on the "
+                                 "small batch")
+    return out
+
+
+def phase10(pt, ff, fr, fk, d):
+    """Problem 0 through QPDO: verbose, a time limit that ends it, a time
+    limit that does not.  Returns the launches of the three solves."""
+    d0 = {k: v[0] for k, v in d.items()}
+    one = {k: np.asarray(v)[None] for k, v in d0.items()}
+    base = pallas_kkt_settings(pt)
+    solver = pt.QPDO()
+    solver.setup(d0["Q"], d0["q"], d0["A"], d0["l"], d0["u"], base)
+    silent = solver.solve()
+    check_solved(pt, one, silent, "phase 10 (silent)")
+    counts = collections.Counter()
+    for kw in (dict(verbose=True, print_interval=10),
+               dict(eps_abs=1e-14, max_time=1e-3), dict(max_time=60.0)):
+        solver.update_settings(base.replace(**kw))
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts(ff, fr, fk)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = solver.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts.update(launch_counts(ff, fr, fk))
+        status, iters = int(res.info.status_val), int(res.info.iterations)
+        table = buf.getvalue()
+        print(table, end="")
+        print(f"phase 10: {kw}: {res.info.status[0]}, {iters} iterations "
+              f"(silent {int(silent.info.iterations)}), {wall:.3f} s",
+              flush=True)
+        if "max_time" in kw and kw["max_time"] < 1.0:
+            if status != pt.constants.MAX_TIME_REACHED:
+                raise AssertionError(f"phase 10: {kw} gave {status}")
+            continue
+        check_solved(pt, one, res, f"phase 10 ({kw})")
+        if iters != int(silent.info.iterations):
+            raise AssertionError(f"phase 10: {kw}: {iters} iterations, "
+                                 "not the silent solve's")
+        if kw.get("verbose") and "QPDO on GPU" not in table:
+            raise AssertionError("phase 10: the verbose table was not printed")
+    require_launched(counts, "phase 10", ("kkt_solve", F32),
+                     ("residuals", F64))
+    return counts
 
 
 if __name__ == "__main__":

@@ -3,9 +3,12 @@ solver (primal-dual Newton proximal method).
 
 The port runs the dense solve, batched (``solve_batch``), one-shot
 (``make_problem`` + ``solve``) or stateful with warm starts and parametric
-updates (``QPDO``), on the device of its tensors: on an NVIDIA GPU through
-hand-written CUDA kernels (``csrc/``, built with nvcc at first use), on the
-CPU through the kernels' plain PyTorch versions.  ``make_problem`` and
+updates (``QPDO``), under every setting of the JAX package's dense path
+(the Newton modes, the incremental KKT cache, polish, and the iteration
+table and time limit of the host-driven loop), on the device of its
+tensors: on an NVIDIA GPU through hand-written CUDA kernels (``csrc/``,
+built with nvcc at first use), on the CPU through the kernels' plain
+PyTorch versions.  ``make_problem`` and
 ``QPDO.setup`` put their tensors on the GPU unless told ``device="cpu"``.
 The JAX package ``qpdo_tpu`` is the reference it is tested against; this
 package imports neither it nor JAX.

@@ -12,7 +12,10 @@ one; results keep that leading axis (``res.x`` is (1, n)).  Both put
 their tensors on ``device``, and ``device=None`` means ``"cuda"``: nothing
 here looks for a GPU and carries on without one; pass ``device="cpu"`` to
 run on the CPU.  ``Settings.verbose`` and a finite ``Settings.max_time``
-need the host-driven loop, which is not ported yet, and raise.
+route ``solve`` and ``QPDO.solve`` through the host-driven loop
+(``solver/driver.py``: the iteration table, the wall-clock limit), which
+takes one problem; every other setting of the dense path runs in
+``solver/core.py`` on any batch.
 """
 
 from __future__ import annotations
@@ -24,18 +27,15 @@ import torch
 
 from . import constants as _c
 from .solver.core import solve_scaled
+from .solver.driver import solve_driven
 from .solver.scaling import (ruiz_equilibrate, ruiz_equilibrate_kkt,
                              scale_problem)
 from .types import Problem, Result, ScaledProblem, Scaling, Settings
 from .validate import validate_data, validate_settings
 
 
-def _check_driver_settings(settings: Settings) -> None:
-    if settings.verbose or settings.max_time < _c.QPDO_INFTY:
-        raise NotImplementedError(
-            "Settings.verbose and a finite Settings.max_time need the "
-            "host-driven loop (qpdo_tpu/solver/driver.py, utils/printing.py),"
-            " which is not ported yet")
+def _needs_host_driver(settings: Settings) -> bool:
+    return settings.verbose or settings.max_time < _c.QPDO_INFTY
 
 
 def _floating(a, dtype, device) -> torch.Tensor:
@@ -83,10 +83,12 @@ def solve(problem: Problem, settings: Optional[Settings] = None,
     settings = settings or Settings()
     validate_settings(settings)
     validate_data(problem)
-    _check_driver_settings(settings)
+    t0 = time.perf_counter()
     sp = scale_problem(problem, settings.scaling, settings.ruiz_kkt)
-    return solve_scaled(sp, settings, _warm(x0, problem.q),
-                        _warm(y0, problem.l))
+    x0, y0 = _warm(x0, problem.q), _warm(y0, problem.l)
+    if _needs_host_driver(settings):
+        return solve_driven(sp, settings, x0, y0, t0)
+    return solve_scaled(sp, settings, x0, y0)
 
 
 class QPDO:
@@ -130,7 +132,6 @@ class QPDO:
         t0 = time.perf_counter()
         self._settings = settings or Settings()
         validate_settings(self._settings)
-        _check_driver_settings(self._settings)
         problem = make_problem(Q, q, A, l, u, c, dtype, device)
         validate_data(problem)
         self._sp = scale_problem(problem, self._settings.scaling,
@@ -153,7 +154,10 @@ class QPDO:
         """qpdo_solve (qpdo.c:304-476)."""
         sp = self._require_setup()
         t0 = time.perf_counter()
-        res = solve_scaled(sp, self._settings, self._x0, self._y0)
+        if _needs_host_driver(self._settings):
+            res = solve_driven(sp, self._settings, self._x0, self._y0, t0)
+        else:
+            res = solve_scaled(sp, self._settings, self._x0, self._y0)
         # reading the result on the host also waits for the device
         finite = bool(torch.isfinite(res.x).all())
         solve_time = time.perf_counter() - t0
@@ -237,7 +241,6 @@ class QPDO:
         number of Ruiz iterations by running the residual passes on the
         already-scaled A and composing the scalings (qpdo.c:496-512)."""
         validate_settings(settings)
-        _check_driver_settings(settings)
         sp = self._require_setup()
         old = self._settings
         if settings.scaling < old.scaling:

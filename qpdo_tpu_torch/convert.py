@@ -45,13 +45,16 @@ def scaled_problem(sp, device) -> ScaledProblem:
 
 
 def state(s, device) -> SolverState:
-    """A batched ``qpdo_tpu.types.SolverState``.  Its ``kkt_cache`` must be
-    None or one array (the ns inverse); the incremental-KKT tuple cache is
-    not ported."""
-    if isinstance(s.kkt_cache, tuple):
-        raise NotImplementedError("the incremental-KKT cache "
-                                  "(Settings.kkt_update_rows) is not ported")
-    return _fields(SolverState, s, device)
+    """A batched ``qpdo_tpu.types.SolverState``; its ``kkt_cache`` is None,
+    one array (the inv/ns inverse) or the incremental pair
+    (K_tilde, w_applied), which stays a pair."""
+    out = _fields(SolverState, s._replace(kkt_cache=None), device)
+    cache = s.kkt_cache
+    if isinstance(cache, tuple):
+        cache = tuple(tensor(a, device) for a in cache)
+    elif cache is not None:
+        cache = tensor(cache, device)
+    return out._replace(kkt_cache=cache)
 
 
 def settings(s) -> Settings:

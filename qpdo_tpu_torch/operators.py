@@ -4,7 +4,10 @@ Port of ``qpdo_tpu/operators.py:DenseOperator`` (l.110-608): the scaled
 data of a batch of dense QPs with their matvecs and Newton solves.  Every
 vector is (B, n) or (B, m) and every per-problem scalar (B,); the solver
 core (``solver/core.py``) is written against this class.  Only the dense
-operator exists in the port so far.
+operator exists in the port so far.  Its Newton solves are the modes of
+``Settings.kkt_solver`` ("chol", "ns", "inv", "cg") and the incremental
+KKT cache of ``Settings.kkt_update_rows``; ``saddle_polish`` is the
+polish's solve.
 
 Reduced-precision copies of Q and A (``Qmv(x, dtype=...)`` and friends)
 are cast once per operator and kept, where the JAX package relies on XLA
@@ -16,8 +19,10 @@ from __future__ import annotations
 import torch
 
 from .ops.batched import all_finite, bwhere, mtv, mv, norm2
-from .ops.linalg import (form_kkt, kkt_inverse, newton_system_solve,
-                         resolve_dtype)
+from .ops.cg import cg_fixed, pcg, pcg_refined
+from .ops.linalg import (form_kkt, kkt_cache_build, kkt_inverse,
+                         newton_system_solve, newton_system_solve_cached,
+                         resolve_dtype, saddle_polish_solve)
 from .types import ScaledProblem, Settings, tree_map
 
 
@@ -27,9 +32,18 @@ def cast_scaled_problem(sp: ScaledProblem, to_dtype) -> ScaledProblem:
     return tree_map(lambda a: a.to(to_dtype) if a.dtype == from_dt else a, sp)
 
 
+def _ew_tol(tol: float, rhs, tol_hint):
+    """The Eisenstat-Walker forcing term per problem (operators.py:452-457):
+    clip(0.05 * tol_hint / ||rhs||, tol, 1e-2), or ``tol`` without a hint."""
+    if tol_hint is None:
+        return tol
+    rhs_norm = torch.clamp(norm2(rhs), min=1e-30)
+    return torch.clamp(0.05 * tol_hint / rhs_norm, tol, 1e-2)
+
+
 class DenseOperator:
-    """Dense Q/A of a batch, with masked-matmul KKT formation and the
-    Newton solves of ``kkt_solver`` "chol" and "ns"."""
+    """Dense Q/A of a batch, with the KKT formation kernel and the Newton
+    solves of every ``kkt_solver`` mode."""
 
     def __init__(self, sp: ScaledProblem):
         self.sp = sp
@@ -136,12 +150,15 @@ class DenseOperator:
     def newton_solve(self, active, mu, sigma, rhs, settings: Settings,
                      dx_prev=None, tol_hint=None,
                      ytilde=None, res_dual_in=None):
-        """Direct (chol) Newton solve: ``ops/linalg.newton_system_solve``."""
+        """The Newton solve without a carried cache: the factorization-free
+        CG mode, else the direct (chol) solve
+        ``ops/linalg.newton_system_solve``.  ``ytilde``/``res_dual_in``
+        select the fused-rhs mode (``rhs`` is then ignored)."""
         d = self.sp.data
-        if settings.kkt_solver not in ("chol", "ns", "inv"):
-            raise NotImplementedError(
-                f"Settings.kkt_solver={settings.kkt_solver!r} is not ported "
-                "yet (the port has 'chol' and 'ns')")
+        if settings.kkt_solver == "cg":
+            return self._newton_solve_cg(active, mu, sigma, rhs, settings,
+                                         dx_prev, tol_hint,
+                                         ytilde, res_dual_in)
         pcg_iters = settings.kkt_pcg_refine
         if pcg_iters < 0:  # AUTO: only the f32-factor/tiny-mu regime pays
             reduced = resolve_dtype(settings.kkt_dtype, self.dtype) != self.dtype
@@ -162,28 +179,129 @@ class DenseOperator:
                                    kkt_mats=kkt_mats)
 
     def kkt_cache_init(self, active, mu, settings: Settings, sigma=None):
-        """The Newton-Schulz-tracked inverse's exact (re)build."""
-        if settings.kkt_solver != "ns":
-            raise NotImplementedError(
-                "a carried KKT cache exists in the port only for "
-                "kkt_solver='ns' (Settings.kkt_update_rows and the 'inv' "
-                "mode are not ported yet)")
+        """The carried KKT cache, built exactly: the explicit inverse for
+        "inv" and "ns", else the incremental (K_tilde, w_applied)."""
         d = self.sp.data
-        if sigma is None:
-            sigma = torch.full(d.q.shape[:1], settings.sigma_init,
-                               dtype=self.dtype, device=self.device)
-        return kkt_inverse(d.Q, d.A, active, mu, sigma, settings.proximal,
-                           settings.kkt_dtype)
+        if settings.kkt_solver in ("inv", "ns"):
+            if sigma is None:
+                sigma = torch.full(d.q.shape[:1], settings.sigma_init,
+                                   dtype=self.dtype, device=self.device)
+            return kkt_inverse(d.Q, d.A, active, mu, sigma,
+                               settings.proximal, settings.kkt_dtype)
+        return kkt_cache_build(d.Q, d.A, active / mu, settings.kkt_dtype)
 
     def newton_solve_cached(self, active, mu, sigma, rhs,
                             settings: Settings, cache, dx_prev=None,
                             tol_hint=None):
-        if settings.kkt_solver != "ns" or settings.kkt_update_rows > 0:
-            raise NotImplementedError(
-                f"cached Newton solve for kkt_solver={settings.kkt_solver!r}"
-                f", kkt_update_rows={settings.kkt_update_rows}: only the "
-                "'ns' mode is ported")
-        return self._newton_solve_ns(active, mu, sigma, rhs, settings, cache)
+        """The Newton solve with a carried cache.  Returns (dx, cache)."""
+        if settings.kkt_solver == "ns":
+            return self._newton_solve_ns(active, mu, sigma, rhs, settings,
+                                         cache)
+        if settings.kkt_solver == "inv":
+            return self._newton_solve_inv(active, mu, sigma, rhs, settings,
+                                          cache, dx_prev, tol_hint)
+        d = self.sp.data
+        return newton_system_solve_cached(
+            d.Q, d.A, active / mu, sigma, rhs, cache, settings.proximal,
+            settings.refine_steps, settings.kkt_dtype,
+            settings.kkt_update_rows)
+
+    def _state_kmv(self, active, mu, sigma, proximal: bool):
+        """v -> K v with state-dtype matvecs (the refinement's residual)."""
+        d = self.sp.data
+        w = active / mu
+
+        def Kmv(v):
+            Kv = mv(d.Q, v) + mtv(d.A, w * mv(d.A, v))
+            if proximal:
+                Kv = Kv + sigma[:, None] * v
+            return Kv
+
+        return Kmv
+
+    def _newton_solve_inv(self, active, mu, sigma, rhs, settings: Settings,
+                          X, dx_prev=None, tol_hint=None):
+        """Anchored-inverse Newton solve (operators.py:411-496): form the
+        current K and run CG preconditioned by the anchored inverse X, to
+        the Eisenstat-Walker tolerance (or ``kkt_cg_fixed`` iterations); in
+        a reduced KKT dtype, fixed-count CG inside monotone state-dtype
+        refinement.  Returns (dx, X)."""
+        dt = self.dtype
+        kdt = resolve_dtype(settings.kkt_dtype, dt)
+        K = form_kkt(self._mat("Q", kdt), self._mat("A", kdt),
+                     active.to(kdt), mu.to(kdt), sigma.to(kdt),
+                     settings.proximal)
+        iters = settings.kkt_cg_fixed
+        Kmv = lambda v: mv(K, v)
+        precond = lambda r: mv(X, r)
+
+        if kdt == dt:
+            if iters <= 0:
+                tol = _ew_tol(1e-9 if dt == torch.float64 else 1e-5, rhs,
+                              tol_hint)
+                dx, _, _ = pcg(Kmv, rhs, precond, tol,
+                               min(settings.cg_max_iter, 4 * K.shape[-1]),
+                               x0=dx_prev)
+            else:
+                dx = cg_fixed(Kmv, rhs, precond, iters, x0=dx_prev)
+        else:
+            iters_eff = iters if iters > 0 else 8
+
+            def solve_lo(b, x0=None):
+                return cg_fixed(Kmv, b.to(kdt), precond, iters_eff,
+                                x0=x0).to(dt)
+
+            Kmv_hi = self._state_kmv(active, mu, sigma, settings.proximal)
+            dx = solve_lo(rhs, None if dx_prev is None else dx_prev.to(kdt))
+            r = rhs - Kmv_hi(dx)
+            rn = norm2(r)
+            for _ in range(settings.refine_steps):
+                dx_new = dx + solve_lo(r)
+                r_new = rhs - Kmv_hi(dx_new)
+                rn_new = norm2(r_new)
+                better = rn_new < rn
+                dx = bwhere(better, dx_new, dx)
+                r = bwhere(better, r_new, r)
+                rn = torch.where(better, rn_new, rn)
+        return bwhere(all_finite(dx), dx, torch.zeros_like(dx)), X
+
+    def _newton_solve_cg(self, active, mu, sigma, rhs, settings: Settings,
+                         dx_prev=None, tol_hint=None,
+                         ytilde=None, res_dual_in=None):
+        """Factorization-free Newton solve (operators.py:498-575): form K
+        and solve by Jacobi-preconditioned CG warm-started from the
+        previous direction, to the Eisenstat-Walker tolerance
+        (``kkt_cg_fixed`` > 0: that many iterations); in a reduced KKT
+        dtype, ``pcg_refined`` with state-dtype rounds.  Directions are
+        inexact (``newton_exact`` is False)."""
+        dt = self.dtype
+        kdt = resolve_dtype(settings.kkt_dtype, dt)
+        if ytilde is not None:  # fused-rhs mode: no GEMM to ride here
+            rhs = -(res_dual_in
+                    + mtv(self._mat("A", kdt), ytilde.to(kdt)).to(dt))
+        K = form_kkt(self._mat("Q", kdt), self._mat("A", kdt),
+                     active.to(kdt), mu.to(kdt), sigma.to(kdt),
+                     settings.proximal)
+        diag = torch.diagonal(K, dim1=-2, dim2=-1)
+        pos = diag > 0
+        dinv = torch.where(pos, 1.0 / torch.where(pos, diag,
+                                                  torch.ones_like(diag)),
+                           torch.ones_like(diag))
+        tol = _ew_tol(settings.cg_tol if dt == torch.float64 else 1e-5, rhs,
+                      tol_hint)
+        iters = min(settings.cg_max_iter, 4 * K.shape[-1])
+        Kmv = lambda v: mv(K, v)
+
+        if kdt == dt and settings.kkt_cg_fixed > 0:
+            dx = cg_fixed(Kmv, rhs, dinv, settings.kkt_cg_fixed, x0=dx_prev)
+        elif kdt != dt:
+            dx, _, _ = pcg_refined(
+                self._state_kmv(active, mu, sigma, settings.proximal), Kmv,
+                rhs, dinv, tol, iters, settings.cg_refine_rounds, kdt,
+                x0=dx_prev)
+        else:
+            dx, _, _ = pcg(Kmv, rhs, dinv, tol, iters, x0=dx_prev)
+        return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
 
     def _newton_solve_ns(self, active, mu, sigma, rhs, settings: Settings,
                          X):
@@ -193,7 +311,6 @@ class DenseOperator:
         Richardson correction (plus one state-dtype correction when the
         KKT dtype is reduced), resymmetrize X, and guard NaNs.
         Returns (dx, X_new)."""
-        d = self.sp.data
         dt = self.dtype
         kdt = resolve_dtype(settings.kkt_dtype, dt)
         proximal = settings.proximal
@@ -225,14 +342,7 @@ class DenseOperator:
         dx = bwhere(norm2(r1) < norm2(r0), dx1, dx0).to(dt)
         if kdt != dt:
             # one state-dtype correction (the kkt_dtype contract)
-            w = active / mu
-
-            def Kmv(v):
-                Kv = mv(d.Q, v) + mtv(d.A, w * mv(d.A, v))
-                if proximal:
-                    Kv = Kv + sigma[:, None] * v
-                return Kv
-
+            Kmv = self._state_kmv(active, mu, sigma, proximal)
             r = rhs - Kmv(dx)
             dx_new = dx + mv(X, r.to(kdt)).to(dt)
             better2 = norm2(rhs - Kmv(dx_new)) < norm2(r)
@@ -254,6 +364,15 @@ class DenseOperator:
         tau=1 on Newton-Schulz directions; the port keeps it for parity."""
         return (settings.kkt_update_rows == 0
                 and settings.kkt_solver in ("chol", "inv", "ns"))
+
+    def saddle_polish(self, act, bnd, settings: Settings):
+        """The polish's saddle solve on the identified active set
+        (``ops/linalg.saddle_polish_solve``), LU in ``kkt_dtype``."""
+        d = self.sp.data
+        return saddle_polish_solve(d.Q, d.A, d.q, act, bnd,
+                                   settings.polish_delta,
+                                   settings.polish_refine,
+                                   settings.kkt_dtype)
 
     def cast(self, dtype) -> "DenseOperator":
         return DenseOperator(cast_scaled_problem(self.sp, dtype))

@@ -1,24 +1,27 @@
 """Dense KKT formation and factorize/solve for the Newton step, batched.
 
-Port of the parts of ``qpdo_tpu/ops/linalg.py`` that the dense batched
-solve runs.  The reduced system of every problem b is
+Port of the dense parts of ``qpdo_tpu/ops/linalg.py``.  The reduced
+system of every problem b is
 
     K_b = Q_b + sigma_b*I*[proximal] + A_b' diag(active_b/mu_b) A_b
 
 formed by the fused formation kernel (``ops/fused_formation.py``) and
 factored by a Jacobi-prescaled Cholesky, optionally in a reduced
 ``kkt_dtype`` with iterative refinement (Richardson sweeps or PCG) against
-exact state-dtype matvecs.  Cholesky and triangular solves stay on
-``torch.linalg``, as the JAX package leaves them to ``lax.linalg``, except
-under ``Settings.pallas_kkt``: there the whole solve is the fused kernel
-of ``ops/fused_kkt.py``.
+exact state-dtype matvecs.  Cholesky, triangular solves and the LU of the
+polish's saddle system stay on ``torch.linalg``, as the JAX package leaves
+them to ``lax.linalg``, except under ``Settings.pallas_kkt``: there the
+whole Newton solve is the fused kernel of ``ops/fused_kkt.py``.  The
+incremental variant (``kkt_cache_build``, ``newton_system_solve_cached``)
+carries K_tilde = Q + A' diag(w_applied) A across steps and updates it
+with the k rows whose weight changed most.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .batched import all_finite, bwhere, mtv, mv, norm2
+from .batched import all_finite, bwhere, dot, mtv, mv, norm2
 from .cg import pcg
 from .fused_formation import fused_formation
 from .fused_kkt import fused_kkt_solve
@@ -190,13 +193,22 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
     preconditioned by the reduced-precision factor, with state-dtype
     matvecs; where its relative residual ends above ``escalate_rtol`` (or
     NaN) and the factor dtype is reduced, that problem is solved again with
-    a factor in the state dtype."""
-    if ytilde is not None or res_dual_in is not None:
-        raise NotImplementedError(
-            "Settings.fused_newton_rhs is not ported yet")
+    a factor in the state dtype.
+
+    Fused-rhs mode (``ytilde``/``res_dual_in`` given, ``rhs`` ignored):
+    rhs = -(res_dual_in + A' ytilde) with the matvec in the KKT dtype.
+    The JAX package rides A' ytilde on the formation GEMM as an extra
+    column (``linalg.py:317-328``, an op-count cut for the TPU's MXU); the
+    formation kernel has no rhs column, so here it is computed apart,
+    as the JAX package's fused-formation branch does (l.329-338), and K
+    takes that branch's arithmetic (weights divided in the state dtype).
+    Both agree with the GEMM branch to rounding."""
     dt = Q.dtype
     kdt = resolve_dtype(kkt_dtype, dt)
     w = active / mu
+    fused_rhs = ytilde is not None
+    if fused_rhs:
+        rhs = -(res_dual_in + mtv(A.to(kdt), ytilde.to(kdt)).to(dt))
     if pallas_kkt:
         f32 = torch.float32
         sig_eff = sigma.to(f32) if proximal else torch.zeros_like(sigma, dtype=f32)
@@ -215,7 +227,7 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
             dx = _refine(ksolve, _exact_kmv(Q, A, w, sigma, proximal, kdt, dt),
                          rhs, dx, refine_steps)
         return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
-    if pallas_formation:
+    if pallas_formation or fused_rhs:
         sig = sigma.to(kdt) if proximal else torch.zeros_like(sigma, dtype=kdt)
         K = fused_formation(A.to(kdt), w.to(kdt), Q.to(kdt), sig)
     else:
@@ -242,3 +254,131 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
                      rhs, solve1(rhs), refine_steps)
     # a NaN factor must not poison the state
     return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
+
+
+# ---------------------------------------------------------------------------
+# Solution polish: the active-set saddle system
+# ---------------------------------------------------------------------------
+
+def saddle_solve(Q, A, act, rhs1, rhs2, delta, refine_steps: int = 2,
+                 lu_dtype=None):
+    """Solve per problem the symmetric indefinite saddle system
+
+        [[Q,       (act*A)'                  ]]  [v1]   [rhs1]
+        [[act*A,   diag(-delta*act + (1-act))]]  [v2] = [rhs2]
+
+    (Q (B, n, n), A (B, m, n), act (B, m) in {0, 1}, rhs1 (B, n), rhs2
+    (B, m)) by a batched LU in ``lu_dtype`` and ``refine_steps`` sweeps of
+    refinement with state-dtype matvecs (``linalg.py:441-494``).  A
+    problem whose solve is not finite (a singular LU included) gets the
+    zero vector.  Returns (v1, v2)."""
+    dt = Q.dtype
+    ldt = resolve_dtype(lu_dtype, dt)
+    n = Q.shape[-1]
+    Aact = act[..., None] * A
+    dblock = (1.0 - act) - delta * act
+    top = torch.cat([Q, Aact.mT], dim=-1)
+    bottom = torch.cat([Aact, torch.diag_embed(dblock)], dim=-1)
+    S = torch.cat([top, bottom], dim=-2)
+    rhs = torch.cat([rhs1, rhs2], dim=-1)
+
+    LU, piv, _ = torch.linalg.lu_factor_ex(S.to(ldt))
+
+    def solve1(b):
+        return torch.linalg.lu_solve(LU, piv, b.to(ldt)[..., None])[..., 0].to(dt)
+
+    def Smv(v):
+        v1, v2 = v[..., :n], v[..., n:]
+        return torch.cat([mv(Q, v1) + mtv(Aact, v2),
+                          mv(Aact, v1) + dblock * v2], dim=-1)
+
+    sol = solve1(rhs)
+    for _ in range(refine_steps):
+        sol = sol + solve1(rhs - Smv(sol))
+    sol = bwhere(all_finite(sol), sol, torch.zeros_like(sol))
+    return sol[..., :n], sol[..., n:]
+
+
+def saddle_polish_solve(Q, A, q, act, bnd, delta, refine_steps: int = 2,
+                        lu_dtype=None):
+    """The polish solve (``linalg.py:412-438``): the saddle system on the
+    identified active set, rhs (-q, act*bnd); inactive rows carry y_i = 0.
+    Returns (xp, yp)."""
+    xp, yp = saddle_solve(Q, A, act, -q, act * bnd, delta, refine_steps,
+                          lu_dtype)
+    return xp, yp * act
+
+
+# ---------------------------------------------------------------------------
+# Incremental KKT formation (Settings.kkt_update_rows)
+# ---------------------------------------------------------------------------
+
+def kkt_cache_build(Q, A, w, kkt_dtype=None):
+    """A fresh cache (K_tilde, w_applied) = (Q + A' diag(w) A, w) in the
+    KKT dtype: the formation kernel with sigma = 0 (sigma is applied at
+    factor time)."""
+    kdt = resolve_dtype(kkt_dtype, Q.dtype)
+    wk = w.to(kdt)
+    zero = torch.zeros(Q.shape[:1], dtype=kdt, device=Q.device)
+    return fused_formation(A.to(kdt), wk, Q.to(kdt), zero), wk
+
+
+def top_rows(v, k: int):
+    """Per problem, the indices of the k largest entries of ``v`` (B, m),
+    largest first, the lower index first among equals (as
+    ``jax.lax.top_k`` orders them; ``torch.topk`` does not promise it)."""
+    return torch.sort(v, dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+def newton_system_solve_cached(Q, A, w, sigma, rhs, cache, proximal: bool,
+                               refine_steps: int, kkt_dtype, k: int):
+    """The incremental Newton solve (``linalg.py:506-563``): add the rows
+    of the k largest |w - w_applied| to K_tilde, factor K_tilde (+ sigma I)
+    and solve the exact K(w) dx = rhs by 1 + max(refine_steps, 1) PCG
+    iterations with that factor as the preconditioner.  Returns
+    (dx, (K_tilde, w_applied))."""
+    dt = Q.dtype
+    kdt = resolve_dtype(kkt_dtype, dt)
+    Ktilde, w_app = cache
+    k = min(int(k), A.shape[-2])
+    Ak = A.to(kdt)
+
+    dw = w.to(kdt) - w_app
+    idx = top_rows(torch.abs(dw), k)
+    dw_sel = torch.gather(dw, 1, idx)                            # (B, k)
+    A_sel = torch.gather(Ak, 1, idx[..., None].expand(-1, -1, Ak.shape[-1]))
+    Ktilde = Ktilde + torch.matmul(A_sel.mT, dw_sel[..., None] * A_sel)
+    w_app = w_app.scatter(1, idx, torch.gather(w_app, 1, idx) + dw_sel)
+
+    Kfac = Ktilde
+    if proximal:
+        n = Q.shape[-1]
+        Kfac = Kfac + sigma.to(kdt)[:, None, None] * torch.eye(
+            n, dtype=kdt, device=Q.device)
+    chol, dinv = jacobi_cholesky(Kfac)
+    solve1 = _prescaled_tri_solver(chol, dinv, dt)
+    Kmv = _exact_kmv(Q, A, w, sigma, proximal, kdt, dt)
+
+    tiny = torch.finfo(dt).tiny
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = solve1(r)
+    p = z
+    rz = dot(r, z)
+    one = torch.ones_like(rz)
+    zero = torch.zeros_like(rz)
+    for _ in range(1 + max(refine_steps, 1)):
+        Kp = Kmv(p)
+        pKp = dot(p, Kp)
+        live = pKp > tiny
+        alpha = torch.where(live, rz / torch.where(live, pKp, one), zero)
+        x = x + alpha[:, None] * p
+        r = r - alpha[:, None] * Kp
+        z = solve1(r)
+        rz_new = dot(r, z)
+        beta = torch.where(live, rz_new / torch.where(rz > tiny, rz, one),
+                           zero)
+        rz = rz_new
+        p = z + beta[:, None] * p
+    dx = bwhere(all_finite(x), x, torch.zeros_like(x))
+    return dx, (Ktilde, w_app)

@@ -5,8 +5,9 @@ Port of ``qpdo_tpu/ops/linesearch.py``: per problem the merit derivative
     0.5 * psi'(tau) = eta*tau + beta + delta' [delta*tau - alpha]_+
 
 over 2m hinge terms, and its root by a safeguarded bisection
-(``pwa_root_bisect``, sort-free) or by the sorted breakpoint scan
-(``pwa_root``, the library default).  eta and beta are (B,), delta and
+(``pwa_root_bisect``, sort-free), by its chunked variant
+(``pwa_root_bisect_chunk``: vectors of candidates per sequential step) or
+by the sorted breakpoint scan (``pwa_root``, the library default).  eta and beta are (B,), delta and
 alpha (B, 2m); every sum runs over one problem's hinges.
 """
 
@@ -39,11 +40,10 @@ def exact_linesearch(dx, dy, Qdx, Adx, df, y, w, mu, l, u,
         delta, alpha = delta.to(rd), alpha.to(rd)
     if method == "bisect":
         tau = pwa_root_bisect(eta, beta, delta, alpha)
-    elif method == "sort":
-        tau = pwa_root(eta, beta, delta, alpha)
+    elif method == "bisect_chunk":
+        tau = pwa_root_bisect_chunk(eta, beta, delta, alpha)
     else:
-        raise NotImplementedError(f"Settings.linesearch={method!r}: only "
-                                  "'bisect' and 'sort' are ported")
+        tau = pwa_root(eta, beta, delta, alpha)
     return tau.to(state_dt)
 
 
@@ -128,3 +128,80 @@ def pwa_root_bisect(eta, beta, delta, alpha, iters: int = 48):
     a, b = coeffs(t)
     cand = -b / torch.where(a != 0, a, one)
     return torch.where(torch.isfinite(cand), cand, t)
+
+
+def _first(mask):
+    """Per problem: (any entry of the (B, T) mask holds, index of the first
+    that does, 0 where none does)."""
+    return mask.any(dim=-1), torch.argmax(mask.to(torch.int32), dim=-1)
+
+
+def _at(v, k):
+    """v[b, k[b]] for (B, T) v and (B,) indices."""
+    return torch.gather(v, -1, k[:, None])[:, 0]
+
+
+def pwa_root_bisect_chunk(eta, beta, delta, alpha, K: int = 32,
+                          passes: int = 4):
+    """Chunked ``pwa_root_bisect`` per problem (``linesearch.py:182-273``
+    of the JAX package): each sequential step evaluates phi at a vector of
+    candidates.  Two geometric tiers (4^0..4^20, then to 4^40) bracket the
+    root, ``passes`` passes of K equispaced points shrink the bracket
+    K-fold each, and three safeguarded segment-Newton steps make it exact
+    once the bracket lies in one affine segment; otherwise the result is
+    clamped to the bracket."""
+    dt = delta.dtype
+    one = torch.ones_like(eta)
+    zero = torch.zeros_like(eta)
+
+    def phis(ts):                               # (B, T) -> (B, T)
+        hinge = torch.clamp(delta[:, None, :] * ts[:, :, None]
+                            - alpha[:, None, :], min=0.0)
+        return (eta[:, None] * ts + beta[:, None]
+                + torch.matmul(hinge, delta[:, :, None])[..., 0])
+
+    def coeffs(t):
+        act = delta * t[:, None] - alpha > 0
+        a = eta + torch.sum(torch.where(act, delta * delta, 0.0), dim=-1)
+        b = beta - torch.sum(torch.where(act, delta * alpha, 0.0), dim=-1)
+        return a, b
+
+    powers = torch.pow(torch.tensor(4.0, dtype=dt, device=delta.device),
+                       torch.arange(21, dtype=dt, device=delta.device))
+
+    def tier(base):
+        scales = (base * powers).expand(eta.shape[0], -1)
+        hit, k = _first(phis(scales) >= 0)
+        last = scales[:, -1]
+        hi = torch.where(hit, _at(scales, k), last)
+        lo = torch.where(hit & (k > 0),
+                         _at(scales, torch.clamp(k - 1, min=0)),
+                         torch.where(hit, zero, last))
+        return hit, lo, hi
+
+    hit1, lo1, hi1 = tier(1.0)
+    _, lo2, hi2 = tier(float(4.0 ** 20))
+    lo = torch.where(hit1, lo1, lo2)
+    hi = torch.where(hit1, hi1, hi2)
+
+    ks = torch.arange(1, K + 1, dtype=dt, device=delta.device) / K
+    for _ in range(passes):
+        ts = lo[:, None] + (hi - lo)[:, None] * ks
+        any_nn, j = _first(phis(ts) >= 0)
+        new_hi = torch.where(any_nn, _at(ts, j), hi)
+        lo = torch.where(any_nn & (j > 0), _at(ts, torch.clamp(j - 1, min=0)),
+                         lo)
+        hi = new_hi
+
+    t = 0.5 * (lo + hi)
+    for _ in range(3):
+        a, b = coeffs(t)
+        cand = -b / torch.where(a != 0, a, one)
+        t = torch.where((cand > lo) & (cand < hi), cand, 0.5 * (lo + hi))
+        ph = phis(t[:, None])[:, 0]
+        lo = torch.where(ph < 0, t, lo)
+        hi = torch.where(ph >= 0, t, hi)
+    a, b = coeffs(t)
+    cand = -b / torch.where(a != 0, a, one)
+    cand_ok = torch.isfinite(cand) & (cand >= lo) & (cand <= hi)
+    return torch.where(cand_ok, cand, torch.minimum(torch.maximum(t, lo), hi))

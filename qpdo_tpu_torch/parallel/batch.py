@@ -61,6 +61,9 @@ def _run_compact(sp_b: ScaledProblem, stg: Settings, state: SolverState,
     unmasked (batch.py:117-126); otherwise the refresh does not exist and
     the chunk length only sets how often the host checks.
 
+    The states move whole, the carried KKT cache (an inverse or the
+    incremental pair) included: ``_take`` and ``_put`` map over it.
+
     Compaction: the (at most K) active problems, first by index
     (``argsort(~active)`` is stable), are gathered into a sub-batch and
     run to completion by ``core.run_loop``, whose per-problem chunk ends

@@ -7,6 +7,11 @@ scalars are (B,) tensors, and every reduction runs over one problem's
 entries.  The step computes the Newton branch and the outer-update branch
 for every problem and combines them with per-problem masks; a problem
 whose status has latched is frozen exactly, so extra steps change nothing.
+
+The carried KKT cache (``SolverState.kkt_cache``) is None, one (B, n, n)
+tensor (the explicit inverse of ``kkt_solver`` "inv" and "ns") or the
+pair (K_tilde, w_applied) of the incremental cache; ``select`` and
+``masked`` pick it per problem like every other field.
 """
 
 from __future__ import annotations
@@ -62,6 +67,16 @@ def _with_matmul_precision(fn):
         with matmul_precision(settings.matmul_precision):
             return fn(op, settings, *args, **kwargs)
     return wrapped
+
+
+def select(mask, a, b):
+    """Per problem: ``a`` where ``mask`` (B,) holds, else ``b``, for a
+    tensor, a tuple of tensors (the incremental KKT cache) or None."""
+    if a is None:
+        return None
+    if isinstance(a, tuple):
+        return tuple(bwhere(mask, x, y) for x, y in zip(a, b))
+    return bwhere(mask, a, b)
 
 
 def _scalar(op, value, dtype=None):
@@ -180,11 +195,6 @@ def step(op, settings: Settings, s: SolverState,
     sigma = s.sigma
     col = lambda v: v[:, None]
 
-    if settings.accel_gamma > 0:
-        raise NotImplementedError("Settings.accel_gamma is not ported yet")
-    if settings.fused_newton_rhs:
-        raise NotImplementedError("Settings.fused_newton_rhs is not ported yet")
-
     # The whole residual block in one launch (ops/fused_residuals.py; the
     # kernel on a CUDA tensor whatever the flag, see types.py), into the
     # loop's buffers where it hands them in (residual_outputs).
@@ -238,16 +248,23 @@ def step(op, settings: Settings, s: SolverState,
     cdt = resolve_dtype(cert_dt, dt)
     split_certs = check_inf and cdt != dt
 
-    At_ytilde = op.Atmv(ytilde, dtype=ckdt)
-    rhs = -(res_dual_in + At_ytilde)
-    if s.kkt_cache is not None:
-        dx, kkt_cache_new = op.newton_solve_cached(
-            active, s.mu, sigma, rhs, settings, s.kkt_cache,
-            dx_prev=s.dx_prev, tol_hint=s.eps_in)
-    else:
-        dx = op.newton_solve(active, s.mu, sigma, rhs, settings,
-                             dx_prev=s.dx_prev, tol_hint=s.eps_in)
+    if settings.fused_newton_rhs and s.kkt_cache is None:
+        # fused-rhs mode: the Newton solve forms rhs itself
+        dx = op.newton_solve(active, s.mu, sigma, None, settings,
+                             dx_prev=s.dx_prev, tol_hint=s.eps_in,
+                             ytilde=ytilde, res_dual_in=res_dual_in)
         kkt_cache_new = s.kkt_cache
+    else:
+        At_ytilde = op.Atmv(ytilde, dtype=ckdt)
+        rhs = -(res_dual_in + At_ytilde)
+        if s.kkt_cache is not None:
+            dx, kkt_cache_new = op.newton_solve_cached(
+                active, s.mu, sigma, rhs, settings, s.kkt_cache,
+                dx_prev=s.dx_prev, tol_hint=s.eps_in)
+        else:
+            dx = op.newton_solve(active, s.mu, sigma, rhs, settings,
+                                 dx_prev=s.dx_prev, tol_hint=s.eps_in)
+            kkt_cache_new = s.kkt_cache
     Qdx_c = Adx_c_raw = Atdy_c_raw = None
     if mixed:
         Qdx_pure = op.Qmv(dx, dtype=ckdt)
@@ -364,6 +381,19 @@ def step(op, settings: Settings, s: SolverState,
     sigma_out = torch.where(do_sigma & (sigma > settings.sigma_min),
                             sigma_shrunk, sigma)
 
+    # prox-center update: recenter at the iterate (qpdo.c:396-397), or the
+    # safeguarded inertial extrapolation of Settings.accel_gamma
+    if settings.accel_gamma > 0:
+        ot = s.oter.to(dt)
+        gk = settings.accel_gamma * ot / (ot + 3.0)
+        rp_prev_norm = norm_inf(op.Einv * s.res_prim_old)
+        ok = can_check & (s.oter > 0) & (res_prim_norm <= rp_prev_norm)
+        gk = col(torch.where(ok, gk, torch.zeros_like(gk)))
+        xbar_new = s.x + gk * (s.x - s.xbar)
+        ybar_new = s.y + gk * (s.y - s.ybar)
+    else:
+        xbar_new, ybar_new = s.x, s.y
+
     # inner tolerance shrink, only when the subproblem converged before the
     # iteration cap (qpdo.c:407-410)
     eps_in_out = torch.where(
@@ -407,8 +437,8 @@ def step(op, settings: Settings, s: SolverState,
         Ax=pick(Ax_nwt, s.Ax, s.Ax),
         Aty=pick(Aty_nwt, s.Aty, s.Aty),
         dx_prev=pick(dx, s.dx_prev, s.dx_prev),
-        xbar=pick(s.xbar, s.x, s.xbar),  # prox center (qpdo.c:396)
-        ybar=pick(s.ybar, s.y, s.ybar),
+        xbar=pick(s.xbar, xbar_new, s.xbar),  # prox center (qpdo.c:396)
+        ybar=pick(s.ybar, ybar_new, s.ybar),
         mu=pick(s.mu, mu_out, s.mu),
         sigma=pick(s.sigma, sigma_out, s.sigma),
         eps_in=pick(s.eps_in, eps_in_out, s.eps_in),
@@ -423,8 +453,7 @@ def step(op, settings: Settings, s: SolverState,
         res_prim_in_norm=res_prim_in_norm,
         res_dual_in_norm=res_dual_in_norm,
         # the cache advances only on Newton steps
-        kkt_cache=(None if s.kkt_cache is None else
-                   pick(kkt_cache_new, s.kkt_cache, s.kkt_cache)),
+        kkt_cache=select(apply_newton, kkt_cache_new, s.kkt_cache),
         warmup_iter=s.warmup_iter,
     )
 
@@ -465,8 +494,7 @@ def reanchor(op, settings: Settings, s: SolverState) -> SolverState:
 
 def masked(new: SolverState, old: SolverState, mask) -> SolverState:
     """Per problem: ``new`` where ``mask`` (B,) holds, else ``old``."""
-    return SolverState(*[
-        None if a is None else bwhere(mask, a, b) for a, b in zip(new, old)])
+    return SolverState(*[select(mask, a, b) for a, b in zip(new, old)])
 
 
 def _loop_active(s: SolverState, iter_cap):
@@ -549,12 +577,50 @@ def finalize(op, settings: Settings, s: SolverState,
                   dual_inf_cert=dx_cert, info=info)
 
 
+@_with_matmul_precision
 def polish_state(op, settings: Settings, s: SolverState) -> SolverState:
-    """The solution polish: not ported yet, so it passes through when
-    ``polish`` is off and raises otherwise."""
-    if settings.polish:
-        raise NotImplementedError("Settings.polish is not ported yet")
-    return s
+    """The solution polish (Settings.polish; core.py:686-738): one saddle
+    solve on the active set read from the current iterate, accepted per
+    problem only when the recomputed outer residuals verify it.  A running
+    problem latches SOLVED when the polished residuals meet eps_abs; a
+    SOLVED one also needs a strict decrease of max(rp, rd); an infeasible
+    or non-convex latch is never touched."""
+    op = as_operator(op)
+    if not settings.polish:
+        return s
+    eps_abs = settings.eps_abs
+    # activity in the mu -> 0 limit (newton.c:96-107): z = Ax + E^2 cinv y
+    # strictly outside [l, u]
+    z = s.Ax + (op.E * op.E * op.cinv[:, None]) * s.y
+    act_low = z < op.l
+    act_up = z > op.u
+    act = (act_low | act_up).to(op.dtype)
+    bnd = torch.where(act_low, op.l,
+                      torch.where(act_up, op.u, torch.zeros_like(op.l)))
+    xp, yp = op.saddle_polish(act, bnd, settings)
+
+    # verify with exact state-dtype matvecs (the residuals step() stops on)
+    Qxp, Axp, Atyp = op.Qmv(xp), op.Amv(xp), op.Atmv(yp)
+    _, _, rp, rd = outer_residuals(op, yp, Qxp, Axp, Atyp)
+    meets = (rp <= eps_abs) & (rd <= eps_abs)
+    cur = torch.maximum(s.res_prim_norm, s.res_dual_norm)
+    running = s.status == _c.UNSOLVED
+    solved = s.status == _c.SOLVED
+    accept = meets & (running | (solved & (torch.maximum(rp, rd) < cur)))
+
+    pick = lambda new, old: bwhere(accept, new, old)
+    # on acceptance the prox centers move to the polished point and the
+    # inner norms take the verified outer norms
+    return s._replace(
+        x=pick(xp, s.x), y=pick(yp, s.y),
+        Qx=pick(Qxp, s.Qx), Ax=pick(Axp, s.Ax), Aty=pick(Atyp, s.Aty),
+        xbar=pick(xp, s.xbar), ybar=pick(yp, s.ybar),
+        status=torch.where(accept, torch.full_like(s.status, _c.SOLVED),
+                           s.status),
+        res_prim_norm=pick(rp, s.res_prim_norm),
+        res_dual_norm=pick(rd, s.res_dual_norm),
+        res_prim_in_norm=pick(rp, s.res_prim_in_norm),
+        res_dual_in_norm=pick(rd, s.res_dual_in_norm))
 
 
 def warmup_settings(settings: Settings) -> Settings:
@@ -628,8 +694,8 @@ def solve_scaled(op, settings: Settings, x0=None, y0=None) -> Result:
     else:
         s0 = init_state(op, settings, x0, y0)
         if x0 is not None and y0 is not None:
-            # the warm-start polish of core.py:831-836: nothing unless
-            # settings.polish, which is not ported
+            # the warm-start polish of core.py:831-836 (nothing unless
+            # settings.polish)
             s0 = polish_state(op, settings, s0)
     s = run_loop(op, settings, s0, settings.max_iter)
     s = polish_state(op, settings, s)

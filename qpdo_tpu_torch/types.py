@@ -196,9 +196,10 @@ class SolverState(NamedTuple):
     res_dual_norm: torch.Tensor
     res_prim_in_norm: torch.Tensor
     res_dual_in_norm: torch.Tensor
-    # (B, n, n) Newton-Schulz-tracked inverse (kkt_solver "ns"); None when
-    # no cache is carried
-    kkt_cache: Optional[torch.Tensor] = None
+    # the carried KKT cache: the (B, n, n) explicit inverse (kkt_solver
+    # "inv" and "ns"), the incremental pair (K_tilde (B, n, n), w_applied
+    # (B, m)) of kkt_update_rows > 0, or None
+    kkt_cache: Optional[object] = None
     # (B,) int32 iteration count at the hybrid-warmup phase boundary
     warmup_iter: Optional[torch.Tensor] = None
 
@@ -239,7 +240,8 @@ class Result(NamedTuple):
 
 def tree_map(fn, first, *rest):
     """Apply ``fn`` field by field over NamedTuples of tensors (nested
-    NamedTuples recurse; a field that is None in ``first`` stays None)."""
+    NamedTuples and plain tuples recurse; a field that is None in
+    ``first`` stays None)."""
     out = []
     for i, leaf in enumerate(first):
         others = [r[i] for r in rest]
@@ -249,4 +251,4 @@ def tree_map(fn, first, *rest):
             out.append(tree_map(fn, leaf, *others))
         else:
             out.append(fn(leaf, *others))
-    return type(first)(*out)
+    return type(first)(*out) if hasattr(first, "_fields") else tuple(out)

@@ -90,16 +90,6 @@ def test_no_entry_point_lands_on_the_cpu_unasked():
             fn(arg)
 
 
-@pytest.mark.parametrize("kw", [dict(verbose=True), dict(max_time=10.0)])
-def test_host_driven_settings_raise_until_the_driver_is_ported(kw):
-    Q, q, A, l, u = _qp(4, 6)
-    with pytest.raises(NotImplementedError, match="host-driven"):
-        pt.solve(pt.make_problem(Q, q, A, l, u, device="cpu"),
-                 pt.Settings(**kw))
-    with pytest.raises(NotImplementedError, match="host-driven"):
-        pt.QPDO().setup(Q, q, A, l, u, pt.Settings(**kw), device="cpu")
-
-
 def _same_as_jax(tr, jr, atol=1e-8):
     """Batched port result against a batched JAX result."""
     np.testing.assert_array_equal(tr.info.status_val.numpy(),
