@@ -3,7 +3,7 @@
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed SEED]
 
 Phases (any failure raises and exits non-zero):
 
@@ -84,6 +84,33 @@ Phases (any failure raises and exits non-zero):
    ``eps_abs=1e-14, max_time=1e-3`` (MAX_TIME_REACHED) and
    ``max_time=60`` (SOLVED, the silent solve's iterations).
 
+11. The differentiable layer ``qp_solve`` on the bench family at
+   ``Settings()`` (float64): the forward pass every problem SOLVED (the
+   statuses of ``solve_batch`` on the same tensors) with the oracle at
+   1.1e-6, the float64 formation and residual kernels launched; the
+   gradients of a seeded loss in Q, q, A, l and u held against the port on
+   the CPU (first 8 problems, ``GRAD_CPU_RTOL``) and, in q and u, against
+   central differences at eps_abs 1e-10 (rtol 2e-3, atol 5e-4, as
+   tests/test_diff.py) on those of the first 16 problems whose three
+   solves end SOLVED (at least half); forward mode against reverse mode,
+   <g, J t> = <J' g, t> to ``DUALITY_RTOL``.  Forward, backward and jvp
+   wall times.
+12. ``SolverService(max_batch=64, max_wait_ms=5)`` at the library
+   defaults: 512 requests of the bench family with n in 60-100 and m in
+   90-150 (``--seed``), from 8 threads, each thread's first request under
+   a session and re-sent with q moved after its answer (a warm hit each);
+   every request SOLVED with the oracle at 1.1e-6; 16 of them against
+   direct ``solve`` calls of the unpadded problems (equal statuses,
+   iterations and x within ``SERVE_ITER_BAND`` and ``SERVE_X_BAND``).
+   Requests/s, latency p50/p99, mean batch size, the counters.
+13. ``applications``: lasso, portfolio and mpc_condensed at the sizes of
+   tests/test_applications.py on the card against the CPU (x within
+   ``APP_X_BAND``), ``sqp_minimize`` on the constrained Rosenbrock
+   problem; ``Settings(pallas_kkt=True)`` at kkt_dtype None on 16 problems
+   of the family: no launch of the fused kernel and results bit for bit
+   those of ``pallas_kkt=False``; n=221 with ``pallas_kkt`` and a float32
+   KKT refused (ValueError naming the limit) before any launch.
+
 The line before the last is a JSON object with one entry per kernel and
 dtype (formation and residuals in both dtypes), with its launches on the
 path that runs it first and on each path; the last line is
@@ -114,6 +141,15 @@ F32, F64 = torch.float32, torch.float64
 # outside the tensor cores, and the bytes of its L2 cache
 PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
 L2_BYTES = 50e6
+
+
+def parse_args():
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of phase 12's request sizes and data")
+    return parser.parse_args()
 
 
 def card_line() -> str:
@@ -391,6 +427,7 @@ def check_residuals(fr, dtype, b, rtol):
 
 
 def main() -> int:
+    seed = parse_args().seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -526,6 +563,16 @@ def main() -> int:
 
     # ---- phase 10: the host-driven loop ----
     path_launches["driver"] = phase10(pt, ff, fr, fk, d)
+
+    # ---- phases 11-13: the layer, serving, applications ----
+    t0 = time.perf_counter()
+    path_launches["qp_solve"] = phase11(pt, ff, fr, fk, d, card)
+    t11 = time.perf_counter()
+    path_launches["serve"] = phase12(pt, ff, fr, fk, card, seed)
+    t12 = time.perf_counter()
+    path_launches["applications"] = phase13(pt, ff, fr, fk, d, card)
+    print(f"phases 11, 12, 13 took {t11 - t0:.1f}, {t12 - t11:.1f}, "
+          f"{time.perf_counter() - t12:.1f} s, on {card}")
 
     # ---- phase 5: time per call: kernel, plain version, library route ----
     rows = phase5(ff, fr, fk, tl)
@@ -990,6 +1037,373 @@ def phase10(pt, ff, fr, fk, d):
             raise AssertionError("phase 10: the verbose table was not printed")
     require_launched(counts, "phase 10", ("kkt_solve", F32),
                      ("residuals", F64))
+    return counts
+
+
+def numpy_problems(pt, d, device):
+    """A Problem of the numpy batch ``d`` on ``device``."""
+    return pt.Problem(**{k: torch.as_tensor(v, device=device)
+                         for k, v in d.items()})
+
+
+def max_rel(a, b):
+    """max|a - b| / max|b| of two tensors (on any devices), as a float."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+# Phase 11: gradients on the card against the port on the CPU, first 8
+# problems (relative to each gradient's max|entry|); forward mode against
+# reverse mode
+GRAD_CPU_RTOL, DUALITY_RTOL = 1e-9, 1e-6
+FD_H, FD_COORDS, FD_BATCH = 1e-5, (3, 41), 16
+
+
+def phase11(pt, ff, fr, fk, d, card):
+    """The differentiable layer at full width: forward at the library
+    defaults, reverse mode against the port on the CPU and against finite
+    differences, forward mode against reverse mode.  Returns the launches
+    of the forward and backward passes."""
+    import torch.autograd.forward_ad as fwAD
+
+    settings = pt.Settings()
+    names = ("Q", "q", "A", "l", "u")
+    theta = [torch.as_tensor(d[k], device=DEVICE).requires_grad_()
+             for k in names]
+    rng = np.random.default_rng(11)
+    gx = torch.as_tensor(rng.standard_normal((B, N)), device=DEVICE)
+    gy = torch.as_tensor(rng.standard_normal((B, M)), device=DEVICE)
+
+    torch.cuda.synchronize()
+    reset_counts(ff, fr, fk)
+    t0 = time.perf_counter()
+    x, y = pt.qp_solve(*theta, settings)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_counts = launch_counts(ff, fr, fk)
+    require_launched(fwd_counts, "phase 11 forward", ("formation", F64),
+                     ("residuals", F64))
+    # the statuses: solve_batch runs the same solve (scale_problem +
+    # solve_scaled) on the same tensors
+    ref = pt.solve_batch(numpy_problems(pt, d, DEVICE), settings)
+    check_solved(pt, d, ref, "phase 11 (statuses: solve_batch, Settings())")
+    check_solved(pt, d, ref._replace(x=x.detach(), y=y.detach()),
+                 "phase 11 (qp_solve forward, Settings())")
+    print(f"phase 11: qp_solve forward {fwd_s:.3f} s at B={B}, kernel "
+          f"launches {printable(fwd_counts)}; max|x - solve_batch x| "
+          f"{(x - ref.x).abs().max().item():.3e}, on {card}", flush=True)
+
+    loss = (gx * x).sum() + (gy * y).sum()
+    reset_counts(ff, fr, fk)
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(loss, theta)
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    if not all(torch.isfinite(g).all() and on_card(g) for g in grads):
+        raise AssertionError("phase 11: non-finite gradient or not on the card")
+    print(f"phase 11: backward {bwd_s:.3f} s (batched LU of {B} saddle "
+          f"systems of size {N + M}), on {card}", flush=True)
+
+    # the port on the CPU on the first 8 problems
+    cpu = [t.detach()[:8].cpu().requires_grad_() for t in theta]
+    xc, yc = pt.qp_solve(*cpu, settings)
+    gc = torch.autograd.grad((gx[:8].cpu() * xc).sum()
+                             + (gy[:8].cpu() * yc).sum(), cpu)
+    errs = {k: max_rel(g[:8], c) for k, g, c in zip(names, grads, gc)}
+    print("phase 11: card against CPU, first 8 problems, max error relative "
+          "to max|gradient|: " + ", ".join(f"d{k} {e:.3e}"
+                                           for k, e in errs.items())
+          + f" (tol {GRAD_CPU_RTOL}); x {max_rel(x[:8], xc):.3e}")
+    if not max(errs.values()) <= GRAD_CPU_RTOL:
+        raise AssertionError("phase 11: card gradients differ from the CPU's")
+
+    # central differences in q and u on the card, FD_BATCH problems, at the
+    # tolerance of tests/test_diff.py (eps_abs 1e-10: FD noise ~ eps/h)
+    tight = pt.Settings(eps_abs=1e-10, max_iter=500)
+    sub = [t.detach()[:FD_BATCH].clone() for t in theta]
+    sub_grad = [t.clone().requires_grad_() for t in sub]
+    xs, ys = pt.qp_solve(*sub_grad, tight)
+    g_sub = torch.autograd.grad((gx[:FD_BATCH] * xs).sum()
+                                + (gy[:FD_BATCH] * ys).sum(), sub_grad)
+
+    def losses(th):
+        # solve_batch is qp_solve's forward solve (bit for bit, above), and
+        # it gives the statuses too
+        c0 = torch.zeros(FD_BATCH, dtype=th[0].dtype, device=DEVICE)
+        r = pt.solve_batch(pt.Problem(*th, c=c0), tight)
+        return ((gx[:FD_BATCH] * r.x).sum(1) + (gy[:FD_BATCH] * r.y).sum(1),
+                r.info.status_val == pt.SOLVED)
+
+    def moved(k, c, h):
+        th = [t.clone() for t in sub]
+        th[k][:, c] += h
+        return losses(th)
+
+    # a gradient means something only where the solve converged (diff.py):
+    # each coordinate is held on the problems whose three solves are SOLVED
+    base_ok = losses(sub)[1]
+    worst, held = 0.0, []
+    for k in (1, 4):                                     # q, u
+        for c in FD_COORDS:
+            c = c % theta[k].shape[1]
+            (lp, okp), (lm, okm) = moved(k, c, FD_H), moved(k, c, -FD_H)
+            ok = base_ok & okp & okm
+            fd, got = ((lp - lm) / (2 * FD_H))[ok], g_sub[k][:, c][ok]
+            excess = ((got - fd).abs() - (5e-4 + 2e-3 * fd.abs())).max()
+            worst = max(worst, (got - fd).abs().max().item())
+            held.append(int(ok.sum()))
+            if excess.item() > 0 or held[-1] < FD_BATCH // 2:
+                raise AssertionError(f"phase 11: d{names[k]}[:, {c}] differs "
+                                     "from finite differences or too few "
+                                     f"problems converged ({held[-1]})")
+    print(f"phase 11: dq and du at coordinates {FD_COORDS} against central "
+          f"differences (h={FD_H}, eps_abs 1e-10, max_iter 500) on the "
+          f"problems of the first {FD_BATCH} whose three solves are SOLVED "
+          f"({held} of {FD_BATCH}; not SOLVED at the base: "
+          f"{(~base_ok).nonzero().flatten().tolist()}): max abs difference "
+          f"{worst:.3e} (rtol 2e-3, atol 5e-4)")
+
+    # forward mode: <g, J t> = <J' g, t> with J' g the reverse gradients
+    tangents = [torch.as_tensor(rng.standard_normal(t.shape), device=DEVICE)
+                for t in theta]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fwAD.dual_level():
+        duals = [fwAD.make_dual(t.detach(), dt) for t, dt in zip(theta,
+                                                                  tangents)]
+        xf, yf = pt.qp_solve(*duals, settings, mode="forward")
+        dx, dy = fwAD.unpack_dual(xf).tangent, fwAD.unpack_dual(yf).tangent
+        lhs = ((gx * dx).sum() + (gy * dy).sum()).item()
+    torch.cuda.synchronize()
+    jvp_s = time.perf_counter() - t0
+    rhs = sum((g * t).sum() for g, t in zip(grads, tangents)).item()
+    rel = abs(lhs - rhs) / max(abs(rhs), 1e-300)
+    print(f"phase 11: forward mode {jvp_s:.3f} s; <g, J t> {lhs:.10e}, "
+          f"<J' g, t> {rhs:.10e}, relative difference {rel:.3e} (tol "
+          f"{DUALITY_RTOL}), on {card}")
+    if not rel <= DUALITY_RTOL:
+        raise AssertionError("phase 11: forward and reverse modes disagree")
+    return fwd_counts
+
+
+# Phase 12: the service's sample against direct solves of the unpadded
+# problems on the card
+SERVE_REQUESTS, SERVE_THREADS, SERVE_SAMPLE = 512, 8, 16
+SERVE_ITER_BAND, SERVE_X_BAND = 3, 1e-5
+
+
+def serve_requests(seed):
+    """(numpy problem, n, m) of every request of phase 12: the bench family
+    at sizes drawn from ``seed``, n in 60-100 and m in 90-150."""
+    rng = np.random.default_rng(seed)
+    sizes = zip(rng.integers(60, 101, SERVE_REQUESTS),
+                rng.integers(90, 151, SERVE_REQUESTS))
+    return [({k: v[0] for k, v in bench_problems(1, int(n), int(m),
+                                                 seed=seed + 1000 + i).items()},
+             int(n), int(m)) for i, (n, m) in enumerate(sizes)]
+
+
+def phase12(pt, ff, fr, fk, card, seed):
+    """SolverService on the card: 512 requests of mixed sizes from 8
+    threads, one warm-started session per thread.  Returns the launches."""
+    import threading
+
+    from qpdo_tpu_torch.serve import SolverService
+
+    reqs = serve_requests(seed)
+    make = lambda dd: pt.make_problem(dd["Q"], dd["q"], dd["A"], dd["l"],
+                                      dd["u"], device=DEVICE)
+    problems = [make(dd) for dd, _, _ in reqs]
+    # each thread's session: its first request, then that problem with q
+    # moved by 1e-3, submitted once the first is answered
+    per = SERVE_REQUESTS // SERVE_THREADS
+    rng = np.random.default_rng(seed + 1)
+    moved = {}
+    for t in range(SERVE_THREADS):
+        dd, n, m = reqs[t * per]
+        moved[("moved", t)] = (
+            dict(dd, q=dd["q"] + 1e-3 * rng.standard_normal(n)), n, m)
+    torch.cuda.synchronize()
+    svc = SolverService(max_batch=64, max_wait_ms=5)
+    futures, done_at, errors = {}, {}, []
+    submitted_at = {}
+    lock = threading.Lock()
+
+    def submit(key, problem, session=None):
+        submitted_at[key] = time.perf_counter()
+        fut = svc.submit(problem, session=session)
+        fut.add_done_callback(
+            lambda f, key=key: done_at.__setitem__(key, time.perf_counter()))
+        with lock:
+            futures[key] = fut
+        return fut
+
+    def client(t):
+        try:
+            first = t * per
+            submit(first, problems[first], f"client-{t}").result(600)
+            for i in range(first + 1, first + per):
+                submit(i, problems[i])
+            submit(("moved", t), make(moved[("moved", t)][0]), f"client-{t}")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    reset_counts(ff, fr, fk)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    results = {k: f.result(timeout=900) for k, f in futures.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = svc.stats()
+    svc.shutdown()
+    counts = launch_counts(ff, fr, fk)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"phase 12: a client failed: {errors}")
+    if len(results) != SERVE_REQUESTS + SERVE_THREADS:
+        raise AssertionError(f"phase 12: {len(results)} results")
+
+    worst = (0.0, 0.0)
+    for key, res in results.items():
+        dd, n, m = moved[key] if key in moved else reqs[key]
+        one = {k: np.asarray(v)[None] for k, v in dd.items()}
+        if res.x.shape != (1, n) or res.y.shape != (1, m):
+            raise AssertionError(f"phase 12: request {key}: shapes "
+                                 f"{tuple(res.x.shape)}, {tuple(res.y.shape)}")
+        if res.info.status != ["solved"] or not on_card(res.x):
+            raise AssertionError(f"phase 12: request {key}: "
+                                 f"{res.info.status} on {res.x.device}")
+        rp, rd = oracle(one, res.x.cpu().numpy(), res.y.cpu().numpy())
+        worst = (max(worst[0], rp.max()), max(worst[1], rd.max()))
+    if not max(worst) <= 1.1e-6:
+        raise AssertionError(f"phase 12: oracle {worst} above 1.1e-6")
+    if stats["session_warm_hits"] != SERVE_THREADS:
+        raise AssertionError(f"phase 12: session hits {stats}")
+    lat = np.array([done_at[k] - submitted_at[k] for k in results]) * 1e3
+    print(f"phase 12: {len(results)} requests from {SERVE_THREADS} threads "
+          f"in {wall:.3f} s: {len(results) / wall:.2f} requests/s, latency "
+          f"p50 {np.percentile(lat, 50):.1f} ms, p99 "
+          f"{np.percentile(lat, 99):.1f} ms, mean batch size "
+          f"{stats['mean_batch_size']:.2f}; every request SOLVED, oracle max "
+          f"rp {worst[0]:.3e}, max rd {worst[1]:.3e}; stats {stats}; kernel "
+          f"launches {printable(counts)}, on {card}", flush=True)
+    require_launched(counts, "phase 12", ("formation", F64),
+                     ("residuals", F64))
+
+    # a sample against direct solves of the same unpadded problems
+    sample = np.random.default_rng(seed + 2).choice(
+        [k for k in results if not isinstance(k, tuple)], SERVE_SAMPLE,
+        replace=False)
+    d_it, d_x = [], []
+    for i in sample:
+        direct = pt.solve(problems[i])
+        res = results[int(i)]
+        if direct.info.status != res.info.status:
+            raise AssertionError(f"phase 12: request {i}: status "
+                                 f"{res.info.status}, direct "
+                                 f"{direct.info.status}")
+        d_it.append(abs(int(direct.info.iterations)
+                        - int(res.info.iterations)))
+        d_x.append((direct.x - res.x).abs().max().item())
+    print(f"phase 12: {SERVE_SAMPLE} requests against direct solves of the "
+          f"unpadded problems: statuses equal, iteration differences "
+          f"{d_it}, max|x - direct x| {max(d_x):.3e} (bands "
+          f"{SERVE_ITER_BAND}, {SERVE_X_BAND})")
+    if max(d_it) > SERVE_ITER_BAND or max(d_x) > SERVE_X_BAND:
+        raise AssertionError("phase 12: the service's results differ from "
+                             "the direct solves")
+    return counts
+
+
+# Phase 13: an application on the card against the port on the CPU
+APP_X_BAND = 1e-5
+
+
+def phase13(pt, ff, fr, fk, d, card):
+    """The applications and the repaired pallas_kkt rules on the card.
+    Returns the launches of the three applications' solves."""
+    apps = pt.applications
+    rng = np.random.default_rng(0)
+    F = rng.standard_normal((40, 15))
+    b = F[:, :3] @ np.array([2.0, -1.5, 1.0]) + 0.05 * rng.standard_normal(40)
+    rng = np.random.default_rng(3)
+    Mx = rng.standard_normal((8, 8))
+    port = (rng.standard_normal(8) * 0.1, Mx @ Mx.T / 8 + 0.05 * np.eye(8),
+            2.0)
+    Ad = np.array([[1.0, 0.1, 0.0], [0.0, 1.0, 0.1], [0.0, 0.0, 0.9]])
+    Bd = np.array([[0.0], [0.05], [1.0]])
+    cases = {
+        "lasso": lambda dev: apps.lasso(F, b, 2.0, device=dev),
+        "portfolio": lambda dev: apps.portfolio(*port, device=dev),
+        "mpc_condensed": lambda dev: apps.mpc_condensed(
+            Ad, Bd, np.eye(3), 0.1 * np.eye(1), np.array([1.5, 0.0, 0.0]),
+            10, u_lo=-0.4, u_hi=0.4, x_lo=-2.0, x_hi=2.0, device=dev),
+    }
+    counts = collections.Counter()
+    for name, build in cases.items():
+        reset_counts(ff, fr, fk)
+        card_res = pt.solve(build(DEVICE))
+        torch.cuda.synchronize()
+        counts.update(launch_counts(ff, fr, fk))
+        cpu_res = pt.solve(build("cpu"))
+        dx = (card_res.x.cpu() - cpu_res.x).abs().max().item()
+        print(f"phase 13: {name}: card {card_res.info.status[0]} in "
+              f"{int(card_res.info.iterations)} iterations, CPU "
+              f"{cpu_res.info.status[0]} in {int(cpu_res.info.iterations)}; "
+              f"max|x card - x CPU| {dx:.3e} (band {APP_X_BAND})")
+        if not (on_card(card_res.x) and card_res.info.status == ["solved"]
+                and cpu_res.info.status == ["solved"] and dx <= APP_X_BAND):
+            raise AssertionError(f"phase 13: {name} on the card")
+    require_launched(counts, "phase 13 applications", ("formation", F64),
+                     ("residuals", F64))
+
+    f = lambda z: (1 - z[0]) ** 2 + 100.0 * (z[1] - z[0] ** 2) ** 2
+    c = lambda z: torch.stack([z[0] ** 2 + z[1] ** 2])
+    t0 = time.perf_counter()
+    x, its = apps.sqp_minimize(f, c, [0.0, 0.0], [-float("inf")], [1.0],
+                               device=DEVICE)
+    sqp_s = time.perf_counter() - t0
+    err = np.abs(x.cpu().numpy() - [0.7864, 0.6177]).max()
+    print(f"phase 13: sqp_minimize (constrained Rosenbrock) on the card: x "
+          f"{x.cpu().numpy()}, {its} outer iterations, {sqp_s:.2f} s, "
+          f"|x - (0.7864, 0.6177)| {err:.2e} (tol 1e-3), on {card}")
+    if not (on_card(x) and its < 50 and err <= 1e-3):
+        raise AssertionError("phase 13: sqp_minimize")
+
+    # pallas_kkt at the library defaults (kkt_dtype None, float64): the
+    # chol route, bit for bit the solve without the flag
+    problems = numpy_problems(pt, {k: v[:16] for k, v in d.items()}, DEVICE)
+    before = fk.fused_kkt_solve.launches[F32]
+    on = pt.solve_batch(problems, pt.Settings(pallas_kkt=True))
+    torch.cuda.synchronize()
+    kkt = fk.fused_kkt_solve.launches[F32] - before
+    off = pt.solve_batch(problems, pt.Settings())
+    same = all(torch.equal(a, b) for a, b in (
+        (on.x, off.x), (on.y, off.y), (on.info.iterations, off.info.iterations),
+        (on.info.status_val, off.info.status_val)))
+    print(f"phase 13: Settings(pallas_kkt=True) at kkt_dtype None, B=16: "
+          f"{kkt} kkt_solve launches, results "
+          f"{'bit-identical' if same else 'DIFFERENT'} to pallas_kkt=False")
+    if kkt != 0 or not same:
+        raise AssertionError("phase 13: pallas_kkt at a float64 KKT dtype")
+
+    # too large for the fused kernel: refused before any launch
+    big = numpy_problems(pt, bench_problems(2, 221, 40, seed=13), DEVICE)
+    before = launch_counts(ff, fr, fk)
+    try:
+        pt.solve_batch(big, pt.Settings(pallas_kkt=True, kkt_dtype="float32"))
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise AssertionError("phase 13: n=221 with pallas_kkt was not refused")
+    if "220" not in message or launch_counts(ff, fr, fk) != before:
+        raise AssertionError(f"phase 13: n=221: {message}")
+    print(f"phase 13: n=221, pallas_kkt, kkt_dtype float32: refused before "
+          f"any launch: {message}")
     return counts
 
 

@@ -31,7 +31,7 @@ from .solver.driver import solve_driven
 from .solver.scaling import (ruiz_equilibrate, ruiz_equilibrate_kkt,
                              scale_problem)
 from .types import Problem, Result, ScaledProblem, Scaling, Settings
-from .validate import validate_data, validate_settings
+from .validate import validate_data, validate_fused_kkt, validate_settings
 
 
 def _needs_host_driver(settings: Settings) -> bool:
@@ -83,6 +83,7 @@ def solve(problem: Problem, settings: Optional[Settings] = None,
     settings = settings or Settings()
     validate_settings(settings)
     validate_data(problem)
+    validate_fused_kkt(settings, problem.n, problem.Q.device, problem.Q.dtype)
     t0 = time.perf_counter()
     sp = scale_problem(problem, settings.scaling, settings.ruiz_kkt)
     x0, y0 = _warm(x0, problem.q), _warm(y0, problem.l)
@@ -134,6 +135,8 @@ class QPDO:
         validate_settings(self._settings)
         problem = make_problem(Q, q, A, l, u, c, dtype, device)
         validate_data(problem)
+        validate_fused_kkt(self._settings, problem.n, problem.Q.device,
+                           problem.Q.dtype)
         self._sp = scale_problem(problem, self._settings.scaling,
                                  self._settings.ruiz_kkt)
         self._x0 = _warm(x0, problem.q)
@@ -242,6 +245,8 @@ class QPDO:
         already-scaled A and composing the scalings (qpdo.c:496-512)."""
         validate_settings(settings)
         sp = self._require_setup()
+        validate_fused_kkt(settings, sp.data.n, sp.data.Q.device,
+                           sp.data.Q.dtype)
         old = self._settings
         if settings.scaling < old.scaling:
             raise ValueError(

@@ -14,7 +14,9 @@ kept beside it as ``<library>.log``.
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; ``launch`` raises
 ``KernelError`` when that is not 0.  Nothing here falls back to another
-implementation.
+implementation.  The first call builds and loads under a lock, so that
+two threads that launch at once (a serving worker and its caller) build
+the library once.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -46,6 +49,11 @@ _KERNELS = {
     "kkt_solve": (6, 3, (torch.float32,)),                  # B, m, n
     "chol_solve": (3, 2, (torch.float32,)),                 # B, n
 }
+# The largest n of the fused KKT-solve kernel (``qpdo_kkt_solve_max_n`` in
+# csrc/kkt_solve.cu): one problem's K must fit the 227 KB of shared memory
+# one block can use.  Kept here so that a setup can refuse a larger problem
+# without building the library; a card test holds it to ``max_n``.
+KKT_SOLVE_MAX_N = 220
 # the CUDA toolkit's default install prefix
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -107,9 +115,18 @@ def _build(nvcc: str, sources, out: Path) -> None:
         os.replace(lib_tmp, out)
 
 
-@functools.cache
+_load_lock = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library."""
+    """Build (once per source version) and load the kernel library; the
+    threads that call it while the first build runs wait for that build."""
+    with _load_lock:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     nvcc = find_nvcc()
     sources = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256()
@@ -139,6 +156,9 @@ def library() -> ctypes.CDLL:
     lib.qpdo_error_string.argtypes = [ctypes.c_int]
     lib.qpdo_error_string.restype = ctypes.c_char_p
     return lib
+
+
+library.cache_clear = _load.cache_clear
 
 
 def launch(name: str, dtype: torch.dtype, tensors, sizes) -> None:

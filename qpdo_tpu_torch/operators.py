@@ -20,9 +20,10 @@ import torch
 
 from .ops.batched import all_finite, bwhere, mtv, mv, norm2
 from .ops.cg import cg_fixed, pcg, pcg_refined
-from .ops.linalg import (form_kkt, kkt_cache_build, kkt_inverse,
-                         newton_system_solve, newton_system_solve_cached,
-                         resolve_dtype, saddle_polish_solve)
+from .ops.linalg import (form_kkt, fused_kkt_route, kkt_cache_build,
+                         kkt_inverse, newton_system_solve,
+                         newton_system_solve_cached, resolve_dtype,
+                         saddle_polish_solve)
 from .types import ScaledProblem, Settings, tree_map
 
 
@@ -164,10 +165,12 @@ class DenseOperator:
             reduced = resolve_dtype(settings.kkt_dtype, self.dtype) != self.dtype
             pcg_iters = 32 if (reduced and settings.mu_min < 1e-7) else 0
         # the fused solve runs in float32 whatever kkt_dtype says: hand it
-        # the casts kept by this operator instead of two copies per call
+        # the casts kept by this operator instead of two copies per call,
+        # and only where it runs (fused_kkt_route)
+        fused = settings.pallas_kkt and fused_kkt_route(
+            self.device.type, resolve_dtype(settings.kkt_dtype, self.dtype))
         kkt_mats = ((self._mat("Q", torch.float32),
-                     self._mat("A", torch.float32))
-                    if settings.pallas_kkt else None)
+                     self._mat("A", torch.float32)) if fused else None)
         return newton_system_solve(d.Q, d.A, active, mu, sigma, rhs,
                                    settings.proximal, settings.refine_steps,
                                    settings.kkt_dtype,

@@ -10,8 +10,9 @@ factored by a Jacobi-prescaled Cholesky, optionally in a reduced
 ``kkt_dtype`` with iterative refinement (Richardson sweeps or PCG) against
 exact state-dtype matvecs.  Cholesky, triangular solves and the LU of the
 polish's saddle system stay on ``torch.linalg``, as the JAX package leaves
-them to ``lax.linalg``, except under ``Settings.pallas_kkt``: there the
-whole Newton solve is the fused kernel of ``ops/fused_kkt.py``.  The
+them to ``lax.linalg``, except under ``Settings.pallas_kkt`` where
+``fused_kkt_route`` holds: there the whole Newton solve is the fused
+kernel of ``ops/fused_kkt.py``.  The
 incremental variant (``kkt_cache_build``, ``newton_system_solve_cached``)
 carries K_tilde = Q + A' diag(w_applied) A across steps and updates it
 with the k rows whose weight changed most.
@@ -39,6 +40,18 @@ def resolve_dtype(name, default: torch.dtype) -> torch.dtype:
         raise NotImplementedError(f"dtype setting {name!r}: only float32 and "
                                   "float64 are supported")
     return dtypes[str(name)]
+
+
+def fused_kkt_route(device_type: str, kkt_dtype: torch.dtype) -> bool:
+    """Whether ``Settings.pallas_kkt`` takes the fused KKT-solve kernel
+    (its plain version on the CPU) for tensors on ``device_type`` with the
+    resolved KKT dtype ``kkt_dtype``: on the CPU always, on a device only
+    in float32, the JAX package's condition ``on_cpu or kdt == float32``
+    (``qpdo_tpu/ops/linalg.py:269``).  Otherwise the flag's Newton solve
+    is the chol route in the KKT dtype, as without the flag.  This is the
+    reference's routing by settings, not a fallback: a kernel that fails
+    to build or launch still raises."""
+    return device_type == "cpu" or kkt_dtype == torch.float32
 
 
 def form_kkt(Q, A, active, mu, sigma, proximal: bool):
@@ -180,14 +193,14 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
     are cast first and divided in the KKT dtype (``form_kkt``).  Both reach
     the formation kernel on a CUDA tensor.
 
-    ``pallas_kkt``: the whole solve (formation, Jacobi scaling, Cholesky,
-    both substitutions) is one launch of the fused kernel
-    (``ops/fused_kkt.py``), in float32 whatever ``kkt_dtype`` says; the
-    refinement sweeps re-invoke it.  The JAX package takes this branch for
-    any ``kkt_dtype`` on the CPU but only for float32 on a device
-    (``linalg.py:269``); the port takes it whenever the flag is set.
-    ``kkt_mats``: (Q, A) already cast to float32, for a caller that keeps
-    them across calls (``DenseOperator`` does); cast here when absent.
+    ``pallas_kkt``, where ``fused_kkt_route`` holds (on the CPU for any
+    ``kkt_dtype``, on a device for a float32 one): the whole solve
+    (formation, Jacobi scaling, Cholesky, both substitutions) is one
+    launch of the fused kernel (``ops/fused_kkt.py``), in float32 whatever
+    ``kkt_dtype`` says; the refinement sweeps re-invoke it.  Elsewhere the
+    flag changes nothing.  ``kkt_mats``: (Q, A) already cast to float32,
+    for a caller that keeps them across calls (``DenseOperator`` does);
+    cast here when absent.
 
     ``pcg_refine`` > 0 replaces the Richardson sweeps by PCG
     preconditioned by the reduced-precision factor, with state-dtype
@@ -209,7 +222,7 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
     fused_rhs = ytilde is not None
     if fused_rhs:
         rhs = -(res_dual_in + mtv(A.to(kdt), ytilde.to(kdt)).to(dt))
-    if pallas_kkt:
+    if pallas_kkt and fused_kkt_route(Q.device.type, kdt):
         f32 = torch.float32
         sig_eff = sigma.to(f32) if proximal else torch.zeros_like(sigma, dtype=f32)
         Q32, A32 = kkt_mats if kkt_mats is not None else (Q.to(f32), A.to(f32))

@@ -19,11 +19,14 @@ from ..operators import cast_scaled_problem
 from ..solver import core
 from ..solver.scaling import scale_problem
 from ..types import Problem, Result, ScaledProblem, Settings, SolverState, tree_map
+from ..validate import validate_fused_kkt
 
 
 def _solve_batch(problems: Problem, settings: Settings,
                  x0=None, y0=None) -> Result:
     """Plain lock-step batch: every problem runs until the slowest ends."""
+    validate_fused_kkt(settings, problems.n, problems.Q.device,
+                       problems.Q.dtype)
     sps = scale_problem(problems, settings.scaling, settings.ruiz_kkt)
     return core.solve_scaled(sps, settings, x0, y0)
 
@@ -110,6 +113,8 @@ def _solve_batch_compact(problems: Problem, settings: Settings,
     ``hybrid_warmup`` on float64 data: a float32 phase to ``warmup_eps``
     (``core.warmup_settings``), ``core.upcast_state``, then the accurate
     phase; each phase runs ``_run_compact``."""
+    validate_fused_kkt(settings, problems.n, problems.Q.device,
+                       problems.Q.dtype)
     sps = scale_problem(problems, settings.scaling, settings.ruiz_kkt)
     if settings.hybrid_warmup and sps.data.Q.dtype != torch.float32:
         stg1 = core.warmup_settings(settings)

@@ -1,0 +1,296 @@
+"""Micro-batching solver service: the serving runtime.
+
+Port of ``qpdo_tpu/serve.py`` without its mesh.  The reference's serving
+story is a process-global workspace behind a MEX singleton
+(interfaces/mex/qpdo_mex.c:22); here a service turns a stream of QP
+requests into lock-step batched solves on the device of the requests'
+tensors:
+
+- requests queue up; a worker thread drains them in micro-batches (up to
+  ``max_batch``, waiting at most ``max_wait_ms`` for stragglers),
+- higher-``priority`` requests are served first (FIFO within a priority),
+- problems are padded to shape buckets (``utils/padding.py``), so that
+  requests of many sizes share a few batch shapes,
+- warm-started and cold requests batch separately (their init paths
+  differ), as do requests of different dtypes or devices and requests
+  carrying per-request ``settings`` overrides: one batch runs one
+  settings object, so each distinct override is a batch of its own (the
+  port compiles nothing per settings value; an override costs a smaller
+  batch, not a compilation),
+- callers get ``concurrent.futures.Future``s; results are those of the
+  equivalent direct ``solve`` call (padding is inert); an exception in the
+  worker, a kernel's ``KernelError`` included, is set on the Futures of
+  the batch it struck,
+- ``stats()`` exposes counters (submitted/completed/failed, per-status
+  totals, batch count and mean size, queue depth, latency) for
+  monitoring.
+
+One worker on one device.  Sharding micro-batches over several devices
+(the JAX package's ``mesh``) comes with the distributed path
+(ROADMAP.md Queue 1).  PyTorch's TF32 switches are process-wide: a batch
+whose settings ask for another ``matmul_precision`` than a solve running
+at the same time in another thread switches it for both.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import OrderedDict
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from .parallel.batch import _solve_batch
+from .types import Problem, Result, Settings, tree_map
+from .utils.padding import _round_up, pad_problem, unpad_result
+
+
+@dataclass
+class _Request:
+    problem: Problem
+    x0: object
+    y0: object
+    future: Future
+    shape: Tuple[int, int]
+    settings: Optional[Settings] = None
+    t_submit: float = 0.0
+    session: Optional[str] = None
+
+
+@dataclass(order=True)
+class _Prioritized:
+    """PriorityQueue entry: min-heap on (-priority, seq): higher priority
+    first, FIFO within a priority level."""
+    neg_priority: int
+    seq: int
+    request: _Request = field(compare=False)
+
+
+def _warm_rows(reqs, attr: str, size: int, like: torch.Tensor):
+    """The warm-start points of ``reqs`` as one (len(reqs), size) tensor
+    beside ``like``, each zero-padded from its own length."""
+    out = torch.zeros((len(reqs), size), dtype=like.dtype, device=like.device)
+    for k, r in enumerate(reqs):
+        v = torch.as_tensor(getattr(r, attr), dtype=like.dtype,
+                            device=like.device).reshape(-1)
+        out[k, :v.shape[0]] = v
+    return out
+
+
+class SolverService:
+    """Threaded micro-batching QP solver front-end.  A request is one
+    problem: a ``Problem`` that is a batch of one, as ``make_problem``
+    builds it; its result is a batch of one, as ``solve`` returns it."""
+
+    def __init__(self, settings: Optional[Settings] = None,
+                 max_batch: int = 64, max_wait_ms: float = 5.0,
+                 n_mult: int = 32, m_mult: int = 32,
+                 max_pending: int = 1024, max_sessions: int = 1024,
+                 mesh=None, mesh_axis: str = "batch"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "SolverService(mesh=...): sharded dispatch over several "
+                "devices is not ported yet; it comes with the distributed "
+                "path (ROADMAP.md Queue 1, item 6)")
+        self._settings = settings or Settings()
+        # per-session warm-start cache (LRU-bounded): the serving analogue
+        # of the reference's long-lived MEX workspace whose iterate
+        # survives across solves (qpdo_mex.c:22 + qpdo_warm_start,
+        # qpdo.c:217-299), keyed per client session for MPC-style streams
+        self._sessions: "OrderedDict[str, tuple]" = OrderedDict()
+        self._max_sessions = max_sessions
+        self._max_batch = max_batch
+        self._max_wait = max_wait_ms / 1000.0
+        self._n_mult = n_mult
+        self._m_mult = m_mult
+        # Bounded queue = backpressure: submit() blocks (or raises, see
+        # ``block``) once max_pending requests are in flight instead of
+        # letting an overload grow memory without bound.
+        self._queue: "queue.PriorityQueue[_Prioritized]" = \
+            queue.PriorityQueue(maxsize=max_pending)
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._stop = threading.Event()
+        self._stats = {"submitted": 0, "completed": 0, "failed": 0,
+                       "batches": 0, "batched_requests": 0,
+                       "latency_sum_s": 0.0, "by_status": {},
+                       "session_warm_hits": 0}
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    # -- client API --------------------------------------------------------
+
+    def submit(self, problem: Problem, x0=None, y0=None, *,
+               settings: Optional[Settings] = None, priority: int = 0,
+               session: Optional[str] = None, block: bool = True,
+               timeout: Optional[float] = None) -> Future:
+        """Enqueue a QP; returns a Future[Result].
+
+        ``settings`` overrides the service-wide settings for this request
+        (it then batches only with requests of equal settings).  Higher
+        ``priority`` requests are dequeued first (FIFO within a level).
+        With ``block=False`` (or on ``timeout``), a full queue raises
+        ``queue.Full`` instead of waiting, so callers can shed load.
+
+        ``session`` names a warm-start stream: when no explicit ``x0/y0``
+        is given, the request warm-starts from the session's last SOLVED
+        solution of matching dimensions, and its own solution updates the
+        cache on completion.  Sequential use (wait for each result before
+        the next submit) gets the hits; concurrent same-session submits
+        are safe but may cold-start."""
+        if problem.Q.dim() != 3 or problem.Q.shape[0] != 1:
+            raise ValueError("submit takes one problem (a batch of one, as "
+                             f"make_problem builds it), got Q "
+                             f"{tuple(problem.Q.shape)}")
+        if session is not None and x0 is None and y0 is None:
+            with self._lock:
+                cached = self._sessions.get(session)
+                if cached is not None and cached[0].shape[0] == problem.n \
+                        and cached[1].shape[0] == problem.m:
+                    x0, y0 = cached
+                    self._sessions.move_to_end(session)
+                    self._stats["session_warm_hits"] += 1
+        fut: Future = Future()
+        req = _Request(problem=problem, x0=x0, y0=y0, future=fut,
+                       shape=(problem.n, problem.m), settings=settings,
+                       t_submit=time.perf_counter(), session=session)
+        # The lock makes submit/shutdown atomic: once shutdown() has set
+        # the stop event (under this lock), no request can be enqueued
+        # afterwards, so the worker's final drain serves every admitted
+        # Future and none is stranded.
+        with self._lock:
+            if self._stop.is_set():
+                raise RuntimeError("service is shut down")
+            self._seq += 1
+            self._queue.put(_Prioritized(-priority, self._seq, req),
+                            block=block, timeout=timeout)
+            self._stats["submitted"] += 1
+        return fut
+
+    def solve(self, problem: Problem, x0=None, y0=None,
+              timeout: Optional[float] = None) -> Result:
+        """Blocking convenience wrapper."""
+        return self.submit(problem, x0, y0).result(timeout)
+
+    def shutdown(self, wait: bool = True) -> None:
+        """Stop admitting requests; the worker serves what was admitted
+        and ends."""
+        with self._lock:
+            self._stop.set()
+        if wait:
+            self._worker.join()
+
+    def stats(self) -> dict:
+        """Monitoring snapshot: request/batch counters, per-status totals,
+        current queue depth, mean batch size and mean submit->result
+        latency."""
+        with self._lock:
+            s = dict(self._stats)
+            s["by_status"] = dict(self._stats["by_status"])
+        s["queue_depth"] = self._queue.qsize()
+        s["mean_batch_size"] = (s.pop("batched_requests") / s["batches"]
+                                if s["batches"] else 0.0)
+        s["mean_latency_s"] = (s.pop("latency_sum_s") / s["completed"]
+                               if s["completed"] else 0.0)
+        return s
+
+    # -- worker ------------------------------------------------------------
+
+    def _drain_nowait(self) -> list:
+        out = []
+        while True:
+            try:
+                out.append(self._queue.get_nowait().request)
+            except queue.Empty:
+                return out
+
+    def _collect(self) -> Tuple[Sequence[_Request], bool]:
+        """Block for one request, then drain up to max_batch within the
+        micro-batching window.  Returns (batch, stop).  After shutdown,
+        anything still queued (admitted before the stop event) is drained
+        and served so no Future is stranded."""
+        while True:
+            try:
+                first = self._queue.get(timeout=0.05).request
+                break
+            except queue.Empty:
+                if self._stop.is_set():
+                    # re-check the queue *after* seeing the stop event: a
+                    # submit that won the race enqueued before stop was set
+                    return self._drain_nowait(), True
+        batch = [first]
+        deadline = time.perf_counter() + self._max_wait
+        while len(batch) < self._max_batch:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                break
+            try:
+                batch.append(self._queue.get(timeout=remaining).request)
+            except queue.Empty:
+                break
+        return batch, False
+
+    def _run(self) -> None:
+        while True:
+            batch, stop = self._collect()
+            if batch:
+                self._dispatch(batch)
+            if stop:
+                return
+
+    def _dispatch(self, batch: Sequence[_Request]) -> None:
+        # group by (padded shape, dtype, device, warm-ness, settings
+        # override): one batched solve runs one init path and one settings
+        # object, and stacking mixed dtypes or devices is not possible
+        groups = {}
+        for req in batch:
+            if not req.future.set_running_or_notify_cancel():
+                continue                  # cancelled by its caller: skip
+            Q = req.problem.Q
+            key = (_round_up(req.shape[0], self._n_mult),
+                   _round_up(req.shape[1], self._m_mult),
+                   Q.dtype, Q.device, req.x0 is not None, req.y0 is not None,
+                   req.settings)
+            groups.setdefault(key, []).append(req)
+        for key, reqs in groups.items():
+            try:
+                self._solve_group(key, reqs)
+            except Exception as e:  # noqa: BLE001 - the worker must go on
+                # the Futures of this group carry the error to its callers
+                for req in reqs:
+                    if not req.future.done():
+                        with self._lock:
+                            self._stats["failed"] += 1
+                        req.future.set_exception(e)
+
+    def _solve_group(self, key, reqs: Sequence[_Request]) -> None:
+        n_pad, m_pad, _dt, _dev, warm_x, warm_y, override = key
+        padded = [pad_problem(r.problem, n_pad, m_pad) for r in reqs]
+        problems = tree_map(lambda *xs: torch.cat(xs), *padded)
+        x0 = _warm_rows(reqs, "x0", n_pad, problems.q) if warm_x else None
+        y0 = _warm_rows(reqs, "y0", m_pad, problems.q) if warm_y else None
+        res = _solve_batch(problems, override or self._settings, x0, y0)
+        statuses = res.info.status      # reads the batch on the host
+        now = time.perf_counter()
+        with self._lock:
+            self._stats["batches"] += 1
+            self._stats["batched_requests"] += len(reqs)
+        for k, req in enumerate(reqs):
+            one = tree_map(lambda a: a[k:k + 1], res)
+            out = unpad_result(one, req.shape[0], req.shape[1])
+            status = statuses[k]
+            with self._lock:
+                self._stats["completed"] += 1
+                self._stats["latency_sum_s"] += now - req.t_submit
+                by = self._stats["by_status"]
+                by[status] = by.get(status, 0) + 1
+                if req.session is not None and status == "solved":
+                    self._sessions[req.session] = (out.x[0], out.y[0])
+                    self._sessions.move_to_end(req.session)
+                    while len(self._sessions) > self._max_sessions:
+                        self._sessions.popitem(last=False)
+            req.future.set_result(out)

@@ -26,7 +26,10 @@ and ``pallas_residuals`` selects how the step recovers the linesearch's
 ``df`` (``solver/core.step``).  ``pallas_kkt`` selects the fused Newton
 solve: formation, Jacobi scaling, Cholesky and both substitutions in one
 kernel, in float32 whatever ``kkt_dtype`` says
-(``ops/linalg.newton_system_solve``).
+(``ops/linalg.newton_system_solve``).  As in the JAX package, a device
+takes it only where the KKT dtype resolves to float32
+(``ops/linalg.fused_kkt_route``), and refuses at setup a problem whose n
+is above the kernel's limit (``validate.validate_fused_kkt``).
 
 Matmul precision.  ``matmul_precision`` and ``warmup_matmul_precision``
 set PyTorch's TF32 switches for the phase they govern: "highest" (the

@@ -14,6 +14,8 @@ import warnings
 
 import torch
 
+from .kernels import KKT_SOLVE_MAX_N
+from .ops.linalg import fused_kkt_route, resolve_dtype
 from .types import Problem, Settings
 
 
@@ -46,6 +48,32 @@ def validate_data(problem: Problem) -> None:
             f"Lower bound at index {j} is greater than upper bound: "
             f"{float(l.flatten()[j]):.4e} > {float(u.flatten()[j]):.4e}"
         )
+
+
+def validate_fused_kkt(settings: Settings, n: int, device,
+                       dtype: torch.dtype) -> None:
+    """Refuse, before any scaling or solve, a problem of ``n`` variables
+    that ``settings.pallas_kkt`` would send to the fused KKT-solve kernel
+    on a CUDA device when n is above the kernel's limit
+    (``kernels.KKT_SOLVE_MAX_N``, 220): one problem's K must fit the 227 KB
+    of shared memory of one block.  ``device`` and ``dtype`` are those of
+    the problem's tensors; nothing is built.  The kernel serves the direct
+    Newton solve (every ``kkt_solver`` but "cg") where
+    ``ops/linalg.fused_kkt_route`` holds: in the main phase when the KKT
+    dtype resolves to float32, and in the float32 phase of
+    ``hybrid_warmup``.  CPU tensors run any n through its plain version."""
+    if (not settings.pallas_kkt or settings.kkt_solver == "cg"
+            or torch.device(device).type != "cuda" or n <= KKT_SOLVE_MAX_N):
+        return
+    kkt_dtypes = [resolve_dtype(settings.kkt_dtype, dtype)]
+    if settings.hybrid_warmup and dtype != torch.float32:
+        kkt_dtypes.append(torch.float32)  # core.warmup_settings' phase
+    if any(fused_kkt_route("cuda", k) for k in kkt_dtypes):
+        raise ValueError(
+            f"pallas_kkt: n = {n} is above the limit of {KKT_SOLVE_MAX_N} "
+            "of the fused KKT-solve kernel: one problem's K must fit the "
+            "227 KB of shared memory of one block.  Solve this problem "
+            "with pallas_kkt=False (or a float64 kkt_dtype)")
 
 
 def validate_settings(s: Settings) -> None:

@@ -1,0 +1,81 @@
+"""The PyTorch port's top-level names against the JAX package's, and the
+two rules that decide where ``Settings.pallas_kkt`` sends a Newton solve:
+the reference's routing (the fused kernel on the CPU, or on a device in
+float32) and the refusal at setup of a problem too large for the fused
+kernel on a CUDA device.  Both rules are pure functions of settings,
+sizes, device types and dtypes, so they run here without a card or a
+build; tests/test_torch_cuda_layer.py holds them on the card.
+"""
+
+import pytest
+import torch
+
+import qpdo_tpu as qt
+
+import qpdo_tpu_torch as pt
+from qpdo_tpu_torch import kernels
+from qpdo_tpu_torch.ops.linalg import fused_kkt_route
+from qpdo_tpu_torch.validate import validate_fused_kkt
+
+# The names of ``qpdo_tpu.__all__`` still to be ported, each waiting for
+# its item of ROADMAP.md Queue 1: the sparse path (item 4) brings
+# solve_sparse, solve_sparse_batch, solve_sparse_heterogeneous, the sparse
+# layer sparse_qp_layer, and the continuation solver with its grid
+# transfers (solve_continuation, grid1d_prolong, grid2d_interp), whose
+# levels run through solve_sparse.
+WAITING = {"solve_sparse", "solve_sparse_batch", "solve_sparse_heterogeneous",
+           "sparse_qp_layer", "solve_continuation", "grid1d_prolong",
+           "grid2d_interp"}
+
+
+def test_every_name_of_the_jax_package_is_exported():
+    """Every name of ``qpdo_tpu.__all__`` exists in ``qpdo_tpu_torch`` and
+    in its ``__all__``, except the names listed in WAITING; a constant
+    has the JAX package's value."""
+    assert WAITING <= set(qt.__all__)
+    missing = [n for n in qt.__all__
+               if n not in WAITING and not hasattr(pt, n)]
+    assert missing == []
+    assert set(qt.__all__) - WAITING <= set(pt.__all__)
+    assert not WAITING & set(pt.__all__)
+    for name in qt.__all__:
+        if isinstance(getattr(qt, name), (int, float)):
+            assert getattr(pt, name) == getattr(qt, name), name
+
+
+@pytest.mark.parametrize("device_type,kkt_dtype,fused", [
+    ("cpu", torch.float64, True), ("cuda", torch.float32, True),
+    ("cuda", torch.float64, False),
+])
+def test_fused_kkt_route(device_type, kkt_dtype, fused):
+    """The reference's condition (qpdo_tpu/ops/linalg.py:269):
+    on_cpu or kdt == float32."""
+    assert fused_kkt_route(device_type, kkt_dtype) is fused
+
+
+LIMIT = kernels.KKT_SOLVE_MAX_N
+F32, F64 = torch.float32, torch.float64
+PKKT = pt.Settings(pallas_kkt=True)
+
+
+@pytest.mark.parametrize("settings,n,device,dtype,refused", [
+    # the fused kernel on the card in float32: refused above the limit
+    (PKKT.replace(kkt_dtype="float32"), LIMIT + 1, "cuda", F64, True),
+    (PKKT.replace(kkt_dtype="float32"), LIMIT, "cuda:0", F64, False),
+    (PKKT, LIMIT + 1, "cuda", F32, True),
+    # the float32 phase of the hybrid warmup runs the fused kernel too
+    (PKKT.replace(hybrid_warmup=True), LIMIT + 1, "cuda", F64, True),
+    # a float64 KKT dtype on the card takes the chol route: no limit
+    (PKKT, LIMIT + 1, "cuda", F64, False),
+    # the CPU runs any n through the plain version; no flag, no kernel
+    (PKKT.replace(kkt_dtype="float32"), 500, "cpu", F64, False),
+    (pt.Settings(kkt_dtype="float32"), 500, "cuda", F64, False),
+], ids=["f32", "at_limit", "f32_state", "warmup", "f64", "cpu", "off"])
+def test_setup_refuses_a_problem_too_large_for_the_fused_kernel(
+        settings, n, device, dtype, refused):
+    if not refused:
+        validate_fused_kkt(settings, n, torch.device(device), dtype)
+        return
+    with pytest.raises(ValueError, match=rf"n = {n} .* limit of {LIMIT}.*"
+                                         "shared memory"):
+        validate_fused_kkt(settings, n, torch.device(device), dtype)
