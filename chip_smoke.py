@@ -110,6 +110,36 @@ Phases (any failure raises and exits non-zero):
    of the family: no launch of the fused kernel and results bit for bit
    those of ``pallas_kkt=False``; n=221 with ``pallas_kkt`` and a float32
    KKT refused (ValueError naming the limit) before any launch.
+14. Files, the command line, the utilities and the sparse path (PHASE14_*
+   sizes): (a) ``main([...])`` of ``python -m qpdo_tpu_torch`` in-process
+   on HS21 with its objective constant, HS35, HS51 and bench problem 0
+   (written by the port's ``write_qps``), then the same files through a
+   subprocess: every file SOLVED, the three optima within 1e-6, problem 0
+   within the numpy oracle at 1.1e-6, the float64 formation and residual
+   kernels launched, exit code 0; (b) the n=10,000 instance of
+   examples/large_sparse.py written as QPS and parsed by ``read_qps`` and
+   ``read_qps_native`` (arrays equal, both parse times); (c) that instance
+   (n=10,000, m=15,000, seed 0) through ``solve_sparse`` on the card at
+   ``Settings()`` and through ``python -m qpdo_tpu_torch --sparse``: SOLVED,
+   the example's KKT residuals at 1.1e-6, the residual kernel launched;
+   wall time, iterations, CG iterations per Newton step, one ``Amv`` and
+   one ``Atmv``, the residual kernel at B=1 of this shape; card against CPU
+   on an n=500 instance of the generator: the same status (the count is
+   printed: rounding moves it by up to 5 at n=1,000 on the CPU,
+   scripts/sparse_cg_sensitivity.py, so by phase 9's rule the problem is
+   held to its status) and x within ``CARD_CPU_X_BAND``; (d) a second-difference banded problem
+   (benchmarks/fuzz_sparse.py kind 0) at n=500 through ``solve_sparse`` at
+   the defaults: the banded scan route (``newton_exact``), SOLVED, oracle
+   at 1.1e-6, time per Newton step; (e) fleets: ``solve_sparse_batch`` of
+   64 same-pattern n=1,000 instances, of 8 mixed patterns (union), and
+   ``solve_sparse_heterogeneous`` of 8 sizes in 600-1,000: every problem
+   SOLVED within the oracle; then the formation and residual kernels
+   against their plain versions at every (dtype, B, m, n) that (a) and
+   (c)-(e) gave them on the card (recorded around the solver's calls),
+   on fresh inputs of each shape, with the tolerances of phases 2 and 3;
+   (f) ``PhaseTimer`` around a solve at least the
+   solve's device time, ``trace`` writes a profiler file, a CUDA Result
+   survives ``save_result``/``load_result`` bit for bit, back on the card.
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (formation and residuals in both dtypes), with its launches on the
@@ -141,6 +171,11 @@ F32, F64 = torch.float32, torch.float64
 # outside the tensor cores, and the bytes of its L2 cache
 PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
 L2_BYTES = 50e6
+# the kernels against their plain versions (phases 2, 3 and 14): the
+# formation's error relative to max|K|, and the residual tolerance that the
+# bit-for-bit check replaced (printed when it fails)
+FORMATION_TOL = {F32: 1e-5, F64: 1e-12}
+RESIDUAL_RTOL = {F32: 1e-6, F64: 1e-13}
 
 
 def parse_args():
@@ -306,13 +341,13 @@ def check_solved(pt, d, res, what):
         raise AssertionError(f"{what}: oracle residual above 1.1e-6")
 
 
-def formation_inputs(dtype, seed=3):
+def formation_inputs(dtype, seed=3, b=B, m=M, n=N):
     rng = np.random.default_rng(seed)
-    A = rng.standard_normal((B, M, N))
-    w = rng.random((B, M))
-    Mx = rng.standard_normal((B, N, N))
-    Q = np.einsum("bij,bkj->bik", Mx, Mx) / N
-    sigma = rng.random(B) * 0.1
+    A = rng.standard_normal((b, m, n))
+    w = rng.random((b, m))
+    Mx = rng.standard_normal((b, n, n))
+    Q = np.einsum("bij,bkj->bik", Mx, Mx) / n
+    sigma = rng.random(b) * 0.1
     return [torch.as_tensor(a, dtype=dtype, device=DEVICE)
             for a in (A, w, Q, sigma)]
 
@@ -397,21 +432,22 @@ def residual_times(fr, dtype, b):
     return r
 
 
-def check_formation(ff, dtype, tol):
-    args = formation_inputs(dtype)
+def check_formation(ff, dtype, tol, b=B, m=M, n=N):
+    args = formation_inputs(dtype, b=b, m=m, n=n)
     K = ff.fused_formation(*args)
     ref = ff.reference_formation(*args)
     torch.cuda.synchronize()
     err = (K - ref).abs().max().item()
     rel = err / ref.abs().max().item()
     if not (rel <= tol):
-        raise AssertionError(f"formation {dtype}: rel err {rel:.3e} > {tol}")
+        raise AssertionError(f"formation {dtype} B={b} m={m} n={n}: rel err "
+                             f"{rel:.3e} > {tol}")
     return err, rel
 
 
-def check_residuals(fr, dtype, b, rtol):
+def check_residuals(fr, dtype, b, rtol, m=M, n=N):
     """The kernel against its plain version: every output bit-identical."""
-    args = residual_inputs(dtype, b=b)
+    args = residual_inputs(dtype, b=b, m=m, n=n)
     out = fr.fused_residuals(*args)
     ref = fr.reference_residuals(*args)
     torch.cuda.synchronize()
@@ -420,9 +456,9 @@ def check_residuals(fr, dtype, b, rtol):
         worst = max(((a - c).abs() / c.abs()).max().item()
                     for a, c in zip(out, ref))
         raise AssertionError(
-            f"residuals {dtype} B={b}: {differs} differ from the plain "
-            f"version (largest relative error {worst:.3e}; the former "
-            f"tolerance was rtol {rtol})")
+            f"residuals {dtype} B={b} m={m} n={n}: {differs} differ from "
+            f"the plain version (largest relative error {worst:.3e}; the "
+            f"former tolerance was rtol {rtol})")
     return max((a - c).abs().max().item() for a, c in zip(out, ref))
 
 
@@ -459,8 +495,8 @@ def main() -> int:
 
     # ---- phase 2, 3: each kernel against its plain version ----
     max_err = {}
-    for dtype, ftol, rtol in ((torch.float32, 1e-5, 1e-6),
-                              (torch.float64, 1e-12, 1e-13)):
+    for dtype in (F32, F64):
+        ftol, rtol = FORMATION_TOL[dtype], RESIDUAL_RTOL[dtype]
         err, rel = check_formation(ff, dtype, ftol)
         max_err[("formation", dtype)] = err
         print(f"phase 2: formation {dtype}: max abs err {err:.3e}, "
@@ -574,6 +610,16 @@ def main() -> int:
     print(f"phases 11, 12, 13 took {t11 - t0:.1f}, {t12 - t11:.1f}, "
           f"{time.perf_counter() - t12:.1f} s, on {card}")
 
+    # ---- phase 14: files, the command line, utilities, the sparse path ----
+    t0 = time.perf_counter()
+    launches14, sparse_shape, errs14 = phase14(pt, ff, fr, fk, card)
+    path_launches.update(launches14)
+    shapes_checked = collections.defaultdict(list)
+    for (name, dtype, shape), err in errs14.items():
+        max_err[(name, dtype)] = max(max_err[(name, dtype)], err)
+        shapes_checked[(name, dtype)].append(list(shape))
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s, on {card}")
+
     # ---- phase 5: time per call: kernel, plain version, library route ----
     rows = phase5(ff, fr, fk, tl)
     # each kernel's launches on the path that drives it first
@@ -587,8 +633,11 @@ def main() -> int:
         key = (r["name"], getattr(torch, r["dtype"]))
         r["launches"] = path_launches[first_path[key]][key]
         r["max_abs_err"] = max_err[key]
+        r["path_shapes_checked"] = shapes_checked.get(key, [])
         r["launches_by_path"] = {path: counts[key]
                                  for path, counts in path_launches.items()}
+        if key == ("residuals", F64):
+            r["sparse_shape"] = sparse_shape
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1405,6 +1454,548 @@ def phase13(pt, ff, fr, fk, d, card):
     print(f"phase 13: n=221, pallas_kkt, kkt_dtype float32: refused before "
           f"any launch: {message}")
     return counts
+
+
+# Phase 14: files, the command line, the utilities and the sparse path.
+# Copies of the fixtures of tests/test_qps.py and tests/test_maros_fixtures.py
+# (the test modules import the JAX package, which this script does not).
+HS21_WITH_CONST = """\
+NAME          HS21
+ROWS
+ N  obj
+ G  r1
+COLUMNS
+    x1        r1        10.0
+    x2        r1        -1.0
+RHS
+    rhs       obj       100.0
+    rhs       r1        10.0
+BOUNDS
+ LO bnd       x1        2.0
+ UP bnd       x1        50.0
+ LO bnd       x2        -50.0
+ UP bnd       x2        50.0
+QUADOBJ
+    x1        x1        0.02
+    x2        x2        2.0
+ENDATA
+"""
+HS35 = """\
+NAME          HS35
+ROWS
+ N  obj
+ L  c1
+COLUMNS
+    x1        c1        1.0   obj       -8.0
+    x2        c1        1.0   obj       -6.0
+    x3        c1        2.0   obj       -4.0
+RHS
+    rhs       c1        3.0
+    rhs       obj       -9.0
+QUADOBJ
+    x1        x1        4.0
+    x1        x2        2.0
+    x1        x3        2.0
+    x2        x2        4.0
+    x3        x3        2.0
+ENDATA
+"""
+HS51 = """\
+NAME          HS51
+ROWS
+ N  obj
+ E  e1
+ E  e2
+ E  e3
+COLUMNS
+    x1        e1        1.0   obj       0.0
+    x2        e1        3.0   e3        1.0
+    x2        obj       -4.0
+    x3        e2        1.0   obj       -4.0
+    x4        e2        1.0   obj       -2.0
+    x5        e2        -2.0  e3        -1.0
+    x5        obj       -2.0
+RHS
+    rhs       e1        4.0
+    rhs       obj       -6.0
+BOUNDS
+ FR bnd       x1
+ FR bnd       x2
+ FR bnd       x3
+ FR bnd       x4
+ FR bnd       x5
+QUADOBJ
+    x1        x1        2.0
+    x1        x2        -2.0
+    x2        x2        4.0
+    x2        x3        2.0
+    x3        x3        2.0
+    x4        x4        2.0
+    x5        x5        2.0
+ENDATA
+"""
+# known optima of the three fixtures (tests/test_qps.py:70-74,
+# tests/test_maros_fixtures.py:75-90)
+FIXTURE_OPTIMA = {"HS21": -99.96, "HS35": 1.0 / 9.0, "HS51": 0.0}
+# the sizes of phase 14: the full-width instance of examples/large_sparse.py,
+# its reduced card-against-CPU copy, the banded problem and the fleets
+PHASE14_N, PHASE14_M_INEQ = 10_000, 5_000
+PHASE14_SMALL_N = 1_000
+# the card-against-CPU copy, cut from 1,000 (12.2 s on the card and 6.4 s
+# on the CPU) to fit the phase's time
+PHASE14_CPU_N = 500
+# cut from 2,000 (749 iterations at 223 ms a Newton step on the card, 167
+# s) to fit the phase's time
+PHASE14_BANDED_N = 500
+PHASE14_FLEET_B = 64
+PHASE14_HETERO_N = (600, 660, 720, 780, 840, 900, 960, 1000)
+# card against CPU in 14c: the JAX package's acceptance for solves whose
+# path moves with rounding (tests/test_torch_dense_modes.py); the readings
+# on an H100 were 1.38e-7 and 1.39e-7 at n=1,000, 2.75e-7 at n=500
+CARD_CPU_X_BAND = 1e-5
+
+
+def large_sparse(n, m_ineq, seed=0):
+    """examples/large_sparse.py's instance (a pentadiagonal Gram Q, m_ineq
+    random rows of about 5 nonzeros and the box on every variable), as
+    scipy.sparse CSR and numpy float64."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    bands = [rng.standard_normal(n - k) for k in range(3)]
+    Bm = sps.diags(bands, offsets=[0, 1, 2])
+    Q = (Bm.T @ Bm + 0.1 * sps.eye(n)).tocsr()
+    q = rng.standard_normal(n)
+    A_in = sps.random(m_ineq, n, density=5.0 / n, random_state=seed + 1,
+                      data_rvs=rng.standard_normal).tocsr()
+    A = sps.vstack([A_in, sps.eye(n)]).tocsr()
+    l = np.concatenate([-rng.random(m_ineq) - 0.5, -2.0 * np.ones(n)])
+    u = np.concatenate([rng.random(m_ineq) + 0.5, 2.0 * np.ones(n)])
+    return Q, q, A, l, u
+
+
+def second_difference(n, seed=0):
+    """benchmarks/fuzz_sparse.py:gen kind 0: A = tridiag(1, -2, 1) of n-2
+    rows, Q = c I with c in [1, 2), l = 0, u = +inf, q random."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    m = n - 2
+    rows = np.repeat(np.arange(m), 3)
+    cols = (np.arange(m)[:, None] + np.arange(3)[None, :]).ravel()
+    A = sps.csr_matrix((np.tile([1.0, -2.0, 1.0], m), (rows, cols)),
+                       shape=(m, n))
+    Q = sps.eye(n, format="csr") * (1 + rng.random())
+    return Q, rng.standard_normal(n), A, np.zeros(m), np.full(m, np.inf)
+
+
+def sparse_oracle(Q, q, A, l, u, x, y):
+    """examples/large_sparse.py's independent KKT residuals of one
+    problem: (max|Ax - clip(Ax + y, l, u)|, max|Qx + q + A'y|)."""
+    Ax = A @ x
+    return (float(np.max(np.abs(Ax - np.clip(Ax + y, l, u)))),
+            float(np.max(np.abs(Q @ x + q + A.T @ y))))
+
+
+def check_sparse(pt, problems, res, what):
+    """A sparse solve's gate: on the card, every problem SOLVED, each
+    within the oracle at 1.1e-6.  ``res`` is one batched Result or a list
+    of one per problem."""
+    results = res if isinstance(res, list) else [res]
+    xs = [r.x[k] for r in results for k in range(r.x.shape[0])]
+    ys = [r.y[k] for r in results for k in range(r.y.shape[0])]
+    st = [int(v) for r in results for v in r.info.status_val.cpu().tolist()]
+    if not all(on_card(r.x, r.y) for r in results):
+        raise AssertionError(f"{what}: results are not on the card")
+    worst = 0.0
+    for p, x, y in zip(problems, xs, ys):
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        if x.shape != p[1].shape or not (np.isfinite(x).all()
+                                         and np.isfinite(y).all()):
+            raise AssertionError(f"{what}: bad solution shape or values")
+        worst = max(worst, *sparse_oracle(*p[:5], x, y))
+    solved = sum(v == pt.SOLVED for v in st)
+    print(f"{what}: solved {solved}/{len(problems)}, oracle max {worst:.3e}",
+          flush=True)
+    if solved != len(problems) or not worst <= 1.1e-6:
+        raise AssertionError(f"{what}: not every problem SOLVED within the "
+                             f"oracle (statuses {sorted(set(st))})")
+    return worst
+
+
+def sparse_fleet(n, B, seed):
+    """B instances of the large_sparse generator at n with one pattern:
+    Q's and A's values and q redrawn per instance."""
+    Q, q, A, l, u = large_sparse(n, n // 2, seed)
+    rng = np.random.default_rng(seed + 100)
+    fleet = []
+    for _ in range(B):
+        Qb, Ab = Q.copy(), A.copy()
+        Qb.data = Qb.data * (1.0 + 0.1 * rng.random())
+        Ab.data = Ab.data + 0.05 * rng.standard_normal(Ab.nnz)
+        fleet.append((Qb, rng.standard_normal(n), Ab, l, u))
+    return fleet
+
+
+def run_cli(argv, module):
+    """``module.main(argv)`` in this process, its standard output
+    captured.  Returns (exit code, the JSON lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    return rc, [json.loads(line) for line in buf.getvalue().splitlines()
+                if line.startswith("{")]
+
+
+def check_cli_lines(lines, d0, what):
+    """The JSON lines of the four files of phase 14a (with
+    --print-solution): every file SOLVED, the fixtures at their optima,
+    bench problem 0 within the oracle."""
+    results = [ln for ln in lines if "status" in ln]
+    sols = [ln for ln in lines if "x" in ln]
+    if len(results) != 4 or len(sols) != 4:
+        raise AssertionError(f"{what}: {len(results)} result lines")
+    for res, sol in zip(results, sols):
+        if res["status"] != "solved":
+            raise AssertionError(f"{what}: {res['name']} {res['status']}")
+        if res["name"] in FIXTURE_OPTIMA:
+            err = abs(res["objective"] - FIXTURE_OPTIMA[res["name"]])
+            if not err <= 1e-6:
+                raise AssertionError(f"{what}: {res['name']} objective "
+                                     f"{res['objective']}")
+        else:
+            x, y = np.array(sol["x"]), np.array(sol["y"])
+            rp, rd = oracle({k: v[:1] for k, v in d0.items()}, x[None],
+                            y[None])
+            if not (rp.max() <= 1.1e-6 and rd.max() <= 1.1e-6):
+                raise AssertionError(f"{what}: problem 0 oracle {rp}, {rd}")
+    print(f"{what}: " + ", ".join(
+        f"{r['name']} {r['status']} in {r['iterations']} iterations, "
+        f"objective {r['objective']:.10g}" for r in results), flush=True)
+
+
+@contextlib.contextmanager
+def recording_shapes(shapes):
+    """Add to the set ``shapes`` the (name, dtype, (B, m, n)) of every
+    call that the solver makes on the card to the formation and residual
+    wrappers while the context is open.  The calls go through unchanged,
+    so the wrappers count their launches as before."""
+    from qpdo_tpu_torch.ops import linalg
+    from qpdo_tpu_torch.solver import core
+
+    formation, residuals = linalg.fused_formation, core.fused_residuals
+    card = torch.device(DEVICE).type
+
+    def recorded_formation(A, w, Q, sigma):
+        if A.device.type == card:
+            shapes.add(("formation", A.dtype, tuple(A.shape)))
+        return formation(A, w, Q, sigma)
+
+    def recorded_residuals(*args, **kwargs):
+        Ax, Qx = args[0], args[8]
+        if Ax.device.type == card:
+            shapes.add(("residuals", Ax.dtype, (*Ax.shape, Qx.shape[1])))
+        return residuals(*args, **kwargs)
+
+    linalg.fused_formation = recorded_formation
+    core.fused_residuals = recorded_residuals
+    try:
+        yield shapes
+    finally:
+        linalg.fused_formation, core.fused_residuals = formation, residuals
+
+
+def check_path_shapes(ff, fr, shapes, what):
+    """Each kernel against its plain version at every shape of
+    ``shapes`` (recording_shapes), on fresh inputs of that shape: the
+    residual kernel bit for bit, the formation kernel within
+    FORMATION_TOL.  Returns {(name, dtype, (B, m, n)): max abs err}."""
+    errs = {}
+    for name, dtype, (b, m, n) in sorted(shapes, key=str):
+        if name == "formation":
+            err, _ = check_formation(ff, dtype, FORMATION_TOL[dtype], b, m, n)
+            how = f"within {FORMATION_TOL[dtype]} of max|K|"
+        else:
+            err = check_residuals(fr, dtype, b, RESIDUAL_RTOL[dtype], m, n)
+            how = "all nine outputs bit-identical"
+        errs[(name, dtype, (b, m, n))] = err
+        print(f"{what}: {name} {dtype} at B={b} m={m} n={n}: {how} "
+              f"(max abs err {err:.3e})")
+    return errs
+
+
+def timed_solve(fn):
+    """(result, seconds) of ``fn()``, the card synchronized on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase14(pt, ff, fr, fk, card):
+    """Files, the command line, the utilities and the sparse path on the
+    card.  Returns ({"cli": launches, "sparse": launches}, the residual
+    kernel's times at B=1 of the full-width sparse shape, and the kernels'
+    errors at each shape the path gave them, as check_path_shapes)."""
+    import os
+    import shutil
+    import tempfile
+
+    import qpdo_tpu_torch.__main__ as cli
+    from qpdo_tpu_torch import operators
+    from qpdo_tpu_torch.io import QPSData, read_qps, write_qps
+    from qpdo_tpu_torch.native import read_qps_native
+    from qpdo_tpu_torch.solver.sparse import setup_sparse
+    from qpdo_tpu_torch.utils import checkpoint, profiling
+
+    launches = {}
+    shapes = set()
+    tmp = tempfile.mkdtemp(prefix="qpdo_phase14_")
+    try:
+        # ---- 14a: the command line, dense branch ----
+        d0 = bench_problems(1, N, M, seed=0)
+        files = []
+        for name, text in (("hs21", HS21_WITH_CONST), ("hs35", HS35),
+                           ("hs51", HS51)):
+            files.append(os.path.join(tmp, name + ".qps"))
+            with open(files[-1], "w") as f:
+                f.write(text)
+        files.append(os.path.join(tmp, "bench0.qps"))
+        write_qps(QPSData(name="BENCH0", Q=d0["Q"][0], q=d0["q"][0], c=0.0,
+                          A=d0["A"][0], l=d0["l"][0], u=d0["u"][0],
+                          n_structural=M), files[-1])
+        reset_counts(ff, fr, fk)
+        with recording_shapes(shapes):
+            (rc, lines), cli_s = timed_solve(
+                lambda: run_cli(["--print-solution", *files], cli))
+        launches["cli"] = launch_counts(ff, fr, fk)
+        print(f"phase 14a: main([...]) on 4 files: exit code {rc}, "
+              f"{cli_s:.2f} s, kernel launches {printable(launches['cli'])}")
+        check_cli_lines(lines, d0, "phase 14a in-process")
+        require_launched(launches["cli"], "phase 14a", ("formation", F64),
+                         ("residuals", F64))
+        if rc != 0:
+            raise AssertionError(f"phase 14a: exit code {rc}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "qpdo_tpu_torch", "--print-solution",
+             *files], capture_output=True, text=True, timeout=300)
+        print(f"phase 14a: python -m qpdo_tpu_torch: exit code "
+              f"{proc.returncode}, {time.perf_counter() - t0:.2f} s with "
+              f"the start-up")
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 14a subprocess: {proc.stderr[-2000:]}")
+        check_cli_lines([json.loads(ln) for ln in proc.stdout.splitlines()
+                         if ln.startswith("{")], d0, "phase 14a subprocess")
+
+        # ---- 14b: the parsers on the full-width instance ----
+        big = large_sparse(PHASE14_N, PHASE14_M_INEQ)
+        Q, q, A, l, u = big
+        big_path = os.path.join(tmp, "large_sparse.qps")
+        t0 = time.perf_counter()
+        write_qps(QPSData(name="LARGE", Q=Q, q=q, c=0.0, A=A, l=l, u=u,
+                          n_structural=A.shape[0]), big_path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = read_qps(big_path, dense=False)
+        py_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nat = read_qps_native(big_path, dense=False)
+        nat_s = time.perf_counter() - t0
+        same = (py.Q.shape == nat.Q.shape and py.A.shape == nat.A.shape
+                and (py.Q != nat.Q).nnz == 0 and (py.A != nat.A).nnz == 0
+                and all(np.array_equal(a, b) for a, b in (
+                    (py.q, nat.q), (py.l, nat.l), (py.u, nat.u)))
+                and py.c == nat.c and py.n_structural == nat.n_structural)
+        print(f"phase 14b: n={PHASE14_N} m={A.shape[0]}: write_qps "
+              f"{write_s:.2f} s ({os.path.getsize(big_path) / 1e6:.1f} MB), "
+              f"read_qps {py_s:.3f} s, read_qps_native {nat_s:.3f} s, arrays "
+              f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("phase 14b: the parsers disagree")
+
+        # ---- 14c: sparse CG at full width ----
+        # the CG solves of the Newton steps, counted around the operator's
+        # pcg (this problem is not banded: every pcg call is a Newton solve)
+        cg = [0, 0]
+        pcg = operators.pcg
+
+        def counting(*args, **kwargs):
+            out = pcg(*args, **kwargs)
+            cg[0] += 1
+            cg[1] = cg[1] + out[1].sum()
+            return out
+
+        reset_counts(ff, fr, fk)
+        operators.pcg = counting
+        try:
+            with recording_shapes(shapes):
+                res, wall = timed_solve(
+                    lambda: pt.solve_sparse(Q, q, A, l, u))
+        finally:
+            operators.pcg = pcg
+        launches["sparse"] = launch_counts(ff, fr, fk)
+        its = int(res.info.iterations[0])
+        print(f"phase 14c: solve_sparse n={PHASE14_N} m={A.shape[0]} "
+              f"nnz(Q)={Q.nnz} nnz(A)={A.nnz} on the card: "
+              f"{res.info.status[0]} in {its} iterations, {wall:.2f} s "
+              f"({wall / max(its, 1) * 1e3:.1f} ms an iteration), {cg[0]} "
+              f"CG solves, {float(cg[1]) / max(cg[0], 1):.1f} CG iterations "
+              f"a Newton step, kernel launches "
+              f"{printable(launches['sparse'])}")
+        check_sparse(pt, [big], res, "phase 14c solve_sparse")
+        require_launched(launches["sparse"], "phase 14c", ("residuals", F64))
+        op = setup_sparse(Q, q, A, l, u)
+        xv = torch.randn((1, op.n), dtype=F64, device=DEVICE)
+        yv = torch.randn((1, op.m), dtype=F64, device=DEVICE)
+        for name, f in (("Amv", lambda: op.Amv(xv)),
+                        ("Atmv", lambda: op.Atmv(yv))):
+            print(f"phase 14c: {name} at this size: {time_ms(f):.5f} ms as "
+                  f"called, {device_ms(f):.5f} ms on the card alone")
+        m_big = A.shape[0]
+        rargs = residual_inputs(F64, b=1, m=m_big, n=PHASE14_N)
+        rk = lambda: fr.fused_residuals(*rargs)
+        bms, by, nbytes = residual_bound(1, m_big, PHASE14_N, F64)
+        sparse_shape = dict(B=1, m=m_big, n=PHASE14_N, ms=time_ms(rk),
+                            device_ms=device_ms(rk), bound_ms=bms,
+                            bound_by=by, bytes=nbytes)
+        print(f"phase 14c: residual kernel float64 at B=1 m={m_big} "
+              f"n={PHASE14_N}: {sparse_shape['ms']:.5f} ms as called, "
+              f"{sparse_shape['device_ms']:.5f} ms on the card alone, bound "
+              f"{bms:.5f} ms (by {by}, {nbytes / 1e6:.2f} MB)")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "qpdo_tpu_torch", "--sparse",
+             "--print-solution", big_path], capture_output=True, text=True,
+            timeout=600)
+        out = [json.loads(ln) for ln in proc.stdout.splitlines()
+               if ln.startswith("{")]
+        if proc.returncode != 0 or len(out) != 2:
+            raise AssertionError(f"phase 14c --sparse: exit code "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        rp, rd = sparse_oracle(Q, q, A, l, u, np.array(out[1]["x"]),
+                               np.array(out[1]["y"]))
+        print(f"phase 14c: python -m qpdo_tpu_torch --sparse: {out[0]['path']}"
+              f" {out[0]['status']} in {out[0]['iterations']} iterations, "
+              f"solve {out[0]['solve_s']} s, parse {out[0]['parse_s']} s, "
+              f"{time.perf_counter() - t0:.1f} s with the start-up; oracle "
+              f"{rp:.3e}, {rd:.3e}")
+        if not (out[0]["status"] == "solved" and out[0]["path"] == "sparse"
+                and rp <= 1.1e-6 and rd <= 1.1e-6):
+            raise AssertionError("phase 14c: --sparse on the QPS file")
+        small = large_sparse(PHASE14_CPU_N, PHASE14_CPU_N // 2)
+        with recording_shapes(shapes):
+            both = {dev: timed_solve(
+                lambda: pt.solve_sparse(*small, device=dev))
+                for dev in (DEVICE, "cpu")}
+        st = {dev: r.info.status[0] for dev, (r, _) in both.items()}
+        it = {dev: int(r.info.iterations[0]) for dev, (r, _) in both.items()}
+        dx = (both[DEVICE][0].x.cpu() - both["cpu"][0].x).abs().max().item()
+        print(f"phase 14c: n={PHASE14_CPU_N}: card {st[DEVICE]} in "
+              f"{it[DEVICE]} iterations ({both[DEVICE][1]:.2f} s), CPU "
+              f"{st['cpu']} in {it['cpu']} ({both['cpu'][1]:.2f} s); "
+              f"max|x card - x CPU| {dx:.3e}")
+        # a rounding-sensitive count (37-42 at n=1,000 under a 1e-15 change
+        # of A on the CPU, scripts/sparse_cg_sensitivity.py): held to its
+        # status and x
+        if not (st[DEVICE] == st["cpu"] == "solved"
+                and dx <= CARD_CPU_X_BAND):
+            raise AssertionError(f"phase 14c: card and CPU disagree (x "
+                                 f"within {CARD_CPU_X_BAND}?)")
+        check_sparse(pt, [small], both[DEVICE][0],
+                     f"phase 14c n={PHASE14_CPU_N} card")
+
+        # ---- 14d: the banded scan ----
+        band = second_difference(PHASE14_BANDED_N)
+        exact = setup_sparse(*band).newton_exact(pt.Settings())
+        with recording_shapes(shapes):
+            res, wall = timed_solve(lambda: pt.solve_sparse(*band))
+        its = int(res.info.iterations[0])
+        print(f"phase 14d: second difference n={PHASE14_BANDED_N}: banded "
+              f"route (newton_exact) {exact}, {res.info.status[0]} in {its} "
+              f"iterations, {wall:.2f} s, {wall / max(its, 1) * 1e3:.1f} ms a"
+              f" Newton step")
+        if not exact:
+            raise AssertionError("phase 14d: the banded maps were not built")
+        check_sparse(pt, [band], res, "phase 14d")
+
+        # ---- 14e: fleets ----
+        fleet = sparse_fleet(PHASE14_SMALL_N, PHASE14_FLEET_B, seed=3)
+        with recording_shapes(shapes):
+            res, t_same = timed_solve(lambda: pt.solve_sparse_batch(fleet))
+        check_sparse(pt, fleet, res, f"phase 14e same pattern "
+                                     f"B={PHASE14_FLEET_B} ({t_same:.2f} s)")
+        mixed = [large_sparse(PHASE14_SMALL_N, PHASE14_SMALL_N // 2, seed=s)
+                 for s in range(10, 18)]
+        with recording_shapes(shapes):
+            res, t_mixed = timed_solve(lambda: pt.solve_sparse_batch(mixed))
+        check_sparse(pt, mixed, res, f"phase 14e mixed patterns B=8 "
+                                     f"({t_mixed:.2f} s)")
+        hetero = [large_sparse(n, n // 2, seed=20 + k)
+                  for k, n in enumerate(PHASE14_HETERO_N)]
+        with recording_shapes(shapes):
+            res, t_het = timed_solve(
+                lambda: pt.solve_sparse_heterogeneous(hetero))
+        check_sparse(pt, hetero, res, f"phase 14e heterogeneous B=8 "
+                                      f"({t_het:.2f} s)")
+
+        # ---- each kernel at the shapes that 14a and 14c-14e gave it ----
+        big_shape = ("residuals", F64, (1, m_big, PHASE14_N))
+        if big_shape not in shapes:
+            raise AssertionError("phase 14: the residual kernel's shape of "
+                                 "14c was not recorded")
+        errs = check_path_shapes(ff, fr, shapes, "phase 14 shapes")
+        sparse_shape["max_abs_err"] = errs[big_shape]
+
+        # ---- 14f: the utilities ----
+        # the card-against-CPU solve of 14c again, timed by the utility
+        timer = profiling.PhaseTimer()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        produced = []
+        with timer.phase("solve", produced):
+            start.record()
+            res = pt.solve_sparse(*small)
+            end.record()
+            produced.append(res.x)
+        end.synchronize()
+        dev_s = start.elapsed_time(end) / 1e3
+        equal = torch.equal(res.x, both[DEVICE][0].x)
+        print(f"phase 14f: PhaseTimer {timer.times['solve']:.4f} s, device "
+              f"events {dev_s:.4f} s; the n={PHASE14_CPU_N} solve of 14c "
+              f"again: "
+              f"{int(res.info.iterations[0])} iterations, x "
+              f"{'bit for bit equal' if equal else 'different'} (index_add_"
+              f" adds float64 with atomics)")
+        if not timer.times["solve"] >= dev_s:
+            raise AssertionError("phase 14f: PhaseTimer ended before the card")
+        trace_dir = os.path.join(tmp, "trace")
+        with profiling.trace(trace_dir):
+            pt.solve_sparse(*second_difference(64))
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+        ckpt = os.path.join(tmp, "result.npz")
+        checkpoint.save_result(ckpt, res)
+        back = checkpoint.load_result(ckpt, res)
+        same = all(a.device == b.device and a.dtype == b.dtype
+                   and a.shape == b.shape
+                   and torch.equal(a.view(_BITS.get(a.dtype, a.dtype)),
+                                   b.view(_BITS.get(b.dtype, b.dtype)))
+                   for a, b in zip(flat_tensors(back), flat_tensors(res)))
+        print(f"phase 14f: trace files {traces}; checkpoint round trip "
+              f"{'bit for bit, on the card' if same else 'DIFFERENT'}")
+        if not traces or not same:
+            raise AssertionError("phase 14f: trace or checkpoint")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, sparse_shape, errs
+
+
+def flat_tensors(tree):
+    """The tensors of nested tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree if v is not None for t in flat_tensors(v)]
 
 
 if __name__ == "__main__":

@@ -8,18 +8,25 @@ updates (``QPDO``), under every setting of the JAX package's dense path
 (the Newton modes, the incremental KKT cache, polish, and the iteration
 table and time limit of the host-driven loop); the differentiable layer
 ``qp_solve`` (reverse and forward mode); the micro-batching
-``SolverService``; and the canonical problems of ``applications``.  It
+``SolverService``; the canonical problems of ``applications``; the sparse
+large-n path (``solve_sparse``, ``solve_sparse_batch``,
+``solve_sparse_heterogeneous``: matrix-free preconditioned CG, or the
+exact banded factorization on banded patterns); QPS files
+(``qpdo_tpu_torch.io``, the native parser ``qpdo_tpu_torch.native``) and
+the command line ``python -m qpdo_tpu_torch``.  It
 runs on the device of its tensors: on an NVIDIA GPU through hand-written
 CUDA kernels (``csrc/``, built with nvcc at first use), on the CPU
 through the kernels' plain PyTorch versions.  ``make_problem``,
-``QPDO.setup`` and the constructors of ``applications`` put their tensors
-on the GPU unless told ``device="cpu"``.
+``QPDO.setup``, the sparse entry points and the constructors of
+``applications`` put their tensors on the GPU unless told
+``device="cpu"``.
 The JAX package ``qpdo_tpu`` is the reference it is tested against; this
 package imports neither it nor JAX.
 """
 
 from . import applications, constants
-from .api import QPDO, make_problem, solve
+from .api import (QPDO, make_problem, solve, solve_sparse, solve_sparse_batch,
+                  solve_sparse_heterogeneous)
 from .constants import (DUAL_INFEASIBLE, MAX_ITER_REACHED, MAX_TIME_REACHED,
                         NON_CVX, PRIMAL_INFEASIBLE, QPDO_INFTY, SOLVED,
                         UNSOLVED)
@@ -36,6 +43,7 @@ from .validate import UnsafeSettingsWarning
 __all__ = [
     "Problem", "Settings", "Info", "Result", "ScaledProblem", "SolverState",
     "solve_batch", "solve_heterogeneous", "make_problem", "solve", "QPDO",
+    "solve_sparse", "solve_sparse_batch", "solve_sparse_heterogeneous",
     "scale_problem", "solve_scaled", "qp_solve", "SolverService",
     "UnsafeSettingsWarning",
     "SOLVED", "UNSOLVED", "MAX_ITER_REACHED", "MAX_TIME_REACHED", "NON_CVX",

@@ -1,7 +1,8 @@
-"""Public API: ``make_problem``, the functional ``solve`` and the stateful
-``QPDO`` class.
+"""Public API: ``make_problem``, the functional ``solve``, the stateful
+``QPDO`` class, and the sparse entry points ``solve_sparse``,
+``solve_sparse_batch`` and ``solve_sparse_heterogeneous``.
 
-Port of the dense entry points of ``qpdo_tpu/api.py`` (l.35-59, 245-451).
+Port of ``qpdo_tpu/api.py``.
 The lifecycle mirrors the reference driver (include/qpdo.h:14-56): setup /
 warm_start / solve / update_q / update_bounds / update_settings, with the
 same in-place rescaling rules for parametric updates (qpdo.c:481-586).
@@ -16,6 +17,12 @@ route ``solve`` and ``QPDO.solve`` through the host-driven loop
 (``solver/driver.py``: the iteration table, the wall-clock limit), which
 takes one problem; every other setting of the dense path runs in
 ``solver/core.py`` on any batch.
+
+The sparse entry points build a ``SparseOperator`` (``solver/sparse.py``)
+from scipy.sparse, dense or triplet data and run the same core on it:
+Newton steps by matrix-free preconditioned CG, or by the exact banded
+factorization where the KKT pattern is banded.  They take ``device=`` as
+``make_problem`` does (None is "cuda") and return batch-first results.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import constants as _c
@@ -30,7 +38,7 @@ from .solver.core import solve_scaled
 from .solver.driver import solve_driven
 from .solver.scaling import (ruiz_equilibrate, ruiz_equilibrate_kkt,
                              scale_problem)
-from .types import Problem, Result, ScaledProblem, Scaling, Settings
+from .types import Problem, Result, ScaledProblem, Scaling, Settings, tree_map
 from .validate import validate_data, validate_fused_kkt, validate_settings
 
 
@@ -73,6 +81,119 @@ def _warm(v, like: torch.Tensor):
         return None
     v = torch.as_tensor(v, dtype=like.dtype, device=like.device)
     return v.reshape(like.shape[0], -1)
+
+
+def solve_sparse(Q, q, A, l, u, c=0.0, settings: Optional[Settings] = None,
+                 x0=None, y0=None, dtype=None, device=None) -> Result:
+    """Large-n solve with sparse data and matrix-free Newton steps.
+
+    The algorithm and outputs of ``solve`` (one-shot setup and solve,
+    qpdo.c:49-476), but Q/A stay sparse triplets and K is never formed,
+    so memory is O(nnz + n + m), like the reference's CHOLMOD backend
+    (src/cholmod_interface.c:35-52).  Accepts scipy.sparse, dense
+    array-likes or ``(data, indices, shape)`` triples; ``Q`` must be the
+    full symmetric matrix.  ``dtype`` defaults to float64 and
+    ``device=None`` is "cuda".  ``verbose`` and a finite ``max_time`` go
+    through the host-driven loop, as in ``solve``.  The result is a batch
+    of one (``res.x`` is (1, n))."""
+    from .solver.sparse import setup_sparse
+
+    settings = settings or Settings()
+    validate_settings(settings)
+    t0 = time.perf_counter()
+    op = setup_sparse(Q, q, A, l, u, c, settings.scaling, dtype,
+                      precond=settings.precond,
+                      precond_block=settings.precond_block,
+                      ruiz_kkt=settings.ruiz_kkt, device=device)
+    x0, y0 = _warm(x0, op.q), _warm(y0, op.l)
+    if _needs_host_driver(settings):
+        return solve_driven(op, settings, x0, y0, t0)
+    return solve_scaled(op, settings, x0, y0)
+
+
+def solve_sparse_batch(problems, settings: Optional[Settings] = None,
+                       dtype=None, x0=None, y0=None, mesh=None,
+                       axis: str = "batch", device=None) -> Result:
+    """Lock-step batched solve of sparse QPs (sparse MPC fleets, scenario
+    sweeps), the sparse counterpart of ``solve_batch``.
+
+    ``problems`` is a sequence of ``(Q, q, A, l, u[, c])`` tuples of equal
+    dimensions.  Instances that share one nonzero pattern batch directly;
+    when the patterns differ, every instance is put on the UNION pattern
+    with explicit zeros (``solver.sparse.union_triplets``), which leaves
+    each result unchanged and costs nnz(union).  One ``SparseOperator``
+    holds the fleet: float leaves stacked along the batch, index maps
+    shared.  ``x0``/``y0`` ((B, n)/(B, m)) warm-start every instance.
+    ``device=None`` is "cuda".  ``mesh`` (sharding the fleet over devices)
+    raises NotImplementedError: it waits for ROADMAP.md Queue 1 item 6."""
+    from .solver.sparse import (_as_triplets, _tensor, _torch_dtype,
+                                setup_sparse_batch, union_triplets)
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "solve_sparse_batch(mesh=...): sharding a fleet over devices "
+            "waits for ROADMAP.md Queue 1 item 6 (distributed)")
+    settings = settings or Settings()
+    validate_settings(settings)
+    problems = [tuple(p) for p in problems]
+    if not problems:
+        raise ValueError("solve_sparse_batch: empty problem list")
+    dt = _torch_dtype(dtype)
+    # pattern check on the raw triplets, before any setup
+    q_trips = [_as_triplets(p[0], dt) for p in problems]
+    a_trips = [_as_triplets(p[2], dt) for p in problems]
+
+    def same_pattern(trips):
+        i0 = trips[0][1]
+        return all(t[1].shape == i0.shape and np.array_equal(t[1], i0)
+                   for t in trips[1:])
+
+    if not (same_pattern(q_trips) and same_pattern(a_trips)):
+        q_datas, q_idx, q_shape = union_triplets(q_trips, dt)
+        a_datas, a_idx, a_shape = union_triplets(a_trips, dt)
+        q_trips = [(d, q_idx, q_shape) for d in q_datas]
+        a_trips = [(d, a_idx, a_shape) for d in a_datas]
+
+    def stack(values):
+        return torch.stack([_tensor(v, dt, device).reshape(-1)
+                            for v in values])
+
+    op = setup_sparse_batch(
+        stack([t[0] for t in q_trips]), q_trips[0][1],
+        stack([t[0] for t in a_trips]), a_trips[0][1],
+        stack([p[1] for p in problems]), stack([p[3] for p in problems]),
+        stack([p[4] for p in problems]),
+        stack([p[5] if len(p) > 5 else 0.0 for p in problems]),
+        a_trips[0][2][0], settings.scaling, precond=settings.precond,
+        precond_block=settings.precond_block, ruiz_kkt=settings.ruiz_kkt)
+    return solve_scaled(op, settings, _warm(x0, op.q), _warm(y0, op.l))
+
+
+def solve_sparse_heterogeneous(problems, settings: Optional[Settings] = None,
+                               dtype=None, mesh=None, axis: str = "batch",
+                               device=None) -> list:
+    """A fleet of sparse problems of mixed SIZES: every instance is padded
+    to the fleet's largest (n, m) with inert variables and rows
+    (``solver.sparse.pad_sparse_problem``), the fleet is solved in one
+    batch on the union pattern, and each result is sliced back to its
+    problem's sizes.  Returns one Result per problem (a batch of one), in
+    input order."""
+    from .solver.sparse import _torch_dtype, pad_sparse_problem
+    from .utils.padding import unpad_result
+
+    problems = [tuple(p) for p in problems]
+    if not problems:
+        raise ValueError("solve_sparse_heterogeneous: empty problem list")
+    dims = [(np.asarray(p[1]).reshape(-1).shape[0],
+             np.asarray(p[3]).reshape(-1).shape[0]) for p in problems]
+    n_pad = max(n for n, _ in dims)
+    m_pad = max(m for _, m in dims)
+    dt = _torch_dtype(dtype)
+    padded = [pad_sparse_problem(p, n_pad, m_pad, dt) for p in problems]
+    res = solve_sparse_batch(padded, settings, dtype, mesh=mesh, axis=axis,
+                             device=device)
+    return [unpad_result(tree_map(lambda a, i=i: a[i:i + 1], res), n, m)
+            for i, (n, m) in enumerate(dims)]
 
 
 def solve(problem: Problem, settings: Optional[Settings] = None,

@@ -1,13 +1,20 @@
-"""The dense problem operator, batched.
+"""Problem operators, batched: one algorithm core over interchangeable
+linear algebra.
 
-Port of ``qpdo_tpu/operators.py:DenseOperator`` (l.110-608): the scaled
-data of a batch of dense QPs with their matvecs and Newton solves.  Every
-vector is (B, n) or (B, m) and every per-problem scalar (B,); the solver
-core (``solver/core.py``) is written against this class.  Only the dense
-operator exists in the port so far.  Its Newton solves are the modes of
-``Settings.kkt_solver`` ("chol", "ns", "inv", "cg") and the incremental
-KKT cache of ``Settings.kkt_update_rows``; ``saddle_polish`` is the
-polish's solve.
+Port of ``qpdo_tpu/operators.py``.  Every operator holds the scaled data
+of a batch of QPs with its matvecs and Newton solves; every vector is
+(B, n) or (B, m) and every per-problem scalar (B,), and each operator
+has a batch size, a device and a dtype.  The solver core
+(``solver/core.py``) is written against them.
+
+- ``DenseOperator`` (JAX l.110-608): dense Q/A.  Its Newton solves are the
+  modes of ``Settings.kkt_solver`` ("chol", "ns", "inv", "cg") and the
+  incremental KKT cache of ``Settings.kkt_update_rows``;
+  ``saddle_polish`` is the polish's solve.
+- ``SparseOperator`` (JAX l.684-1483): sparse triplets of Q/A with the
+  matrix-free Newton solves of the large-n path: preconditioned CG
+  (Jacobi, block-Jacobi, two-level) and, on banded KKT patterns, the
+  exact block-tridiagonal scan factorization.
 
 Reduced-precision copies of Q and A (``Qmv(x, dtype=...)`` and friends)
 are cast once per operator and kept, where the JAX package relies on XLA
@@ -20,8 +27,8 @@ import torch
 
 from .ops.batched import all_finite, bwhere, mtv, mv, norm2
 from .ops.cg import cg_fixed, pcg, pcg_refined
-from .ops.linalg import (form_kkt, fused_kkt_route, kkt_cache_build,
-                         kkt_inverse, newton_system_solve,
+from .ops.linalg import (_cholesky_nan, form_kkt, fused_kkt_route,
+                         kkt_cache_build, kkt_inverse, newton_system_solve,
                          newton_system_solve_cached, resolve_dtype,
                          saddle_polish_solve)
 from .types import ScaledProblem, Settings, tree_map
@@ -57,6 +64,7 @@ class DenseOperator:
     c = property(lambda self: self.sp.data.c)
     dtype = property(lambda self: self.sp.data.Q.dtype)
     device = property(lambda self: self.sp.data.Q.device)
+    batch = property(lambda self: self.sp.data.q.shape[0])
     D = property(lambda self: self.sp.scaling.D)
     Dinv = property(lambda self: self.sp.scaling.Dinv)
     E = property(lambda self: self.sp.scaling.E)
@@ -379,3 +387,480 @@ class DenseOperator:
 
     def cast(self, dtype) -> "DenseOperator":
         return DenseOperator(cast_scaled_problem(self.sp, dtype))
+
+
+# ---------------------------------------------------------------------------
+# Sparse operator (the large-n path)
+# ---------------------------------------------------------------------------
+
+# The state-dtype escalation of the banded solve is compiled in, under
+# Settings.robust_gate_auto, only where mu_min can push cond(K) past what
+# a float32 factor carries (operators.py:40-44 of the JAX package).
+_ESCALATE_MU_FLOOR = 1e-7
+
+# What waits for a later slice (ROADMAP.md Queue 1 item 4b).
+_CR_WAITS = ("banded_algo='cr' (block cyclic reduction) is not ported yet: "
+             "it waits for ROADMAP.md Queue 1 item 4b; use 'scan' or 'auto'")
+
+
+def _tri_solve(L, r, lower_trans: bool = False):
+    """Solve L z = r (``lower_trans`` False) or L' z = r for lower
+    triangular L (..., b, b) and r (..., b)."""
+    if lower_trans:
+        z = torch.linalg.solve_triangular(L.mT, r[..., None], upper=True)
+    else:
+        z = torch.linalg.solve_triangular(L, r[..., None], upper=False)
+    return z[..., 0]
+
+
+def _flat(block, o1, o2, b: int):
+    """Index of entry (o1, o2) of block ``block`` in a flattened stack of
+    b x b blocks."""
+    return (block * b + o1) * b + o2
+
+
+class SparseOperator:
+    """Sparse triplets of Q/A with matrix-free Newton solves, batch-first.
+
+    The large-n replacement of the reference's sparse LDL' backend
+    (src/cholmod_interface.c:8-52): K = Q + sigma*I + A' diag(active/mu) A
+    is never formed; Newton directions come from Jacobi-, block-Jacobi- or
+    two-level-preconditioned CG (``ops/cg.py``), whose matvec is three
+    O(nnz) scatter products, or, where the KKT pattern is banded, from the
+    exact block-tridiagonal factorization.  Scaled-space data; build it
+    with ``qpdo_tpu_torch.solver.sparse.setup_sparse``.
+
+    The float leaves are batch-first, (B, nnz), (B, n), (B, m) and (B,);
+    the index leaves (the triplets' (nnz, 2) [row, col] pairs and the
+    preconditioner and banded maps of ``solver/sparse.py``) are one copy
+    that every problem of the batch shares, so a batch is a fleet of one
+    sparsity pattern (``solve_sparse_batch`` puts mixed patterns on their
+    union).  This replaces the JAX package's stacking and ``vmap`` over
+    per-problem operators.
+
+    Every matvec is a scatter (``index_add_``) over the row-sorted
+    triplets: it takes every pattern.  On the CPU it adds in the order of
+    the triplets, as the JAX package's scatter does; on a CUDA device the
+    float64 adds are atomics, so the order of the sums, and the last bits,
+    may change from run to run.
+    """
+
+    FIELDS = ("q_data", "q_idx", "a_data", "a_idx", "diagQ", "q", "l", "u",
+              "c", "D", "Dinv", "E", "Einv", "cost", "cinv", "l_finite",
+              "u_finite", "pjA", "pjQ", "pcA", "pcQ", "pc_counts", "bdA",
+              "bdAsub", "bdQ", "bdQsub", "bd_shape")
+
+    def __init__(self, **fields):
+        unknown = set(fields) - set(self.FIELDS)
+        if unknown:
+            raise TypeError(f"SparseOperator: unknown fields {sorted(unknown)}")
+        for name in self.FIELDS:
+            setattr(self, name, fields.get(name))
+        self._casts = {}
+
+    def _replace(self, **fields) -> "SparseOperator":
+        kw = {name: getattr(self, name) for name in self.FIELDS}
+        kw.update(fields)
+        return SparseOperator(**kw)
+
+    dtype = property(lambda self: self.q.dtype)
+    device = property(lambda self: self.q.device)
+    batch = property(lambda self: self.q.shape[0])
+    n = property(lambda self: self.q.shape[-1])
+    m = property(lambda self: self.l.shape[-1])
+
+    def zeros_primal(self):
+        return torch.zeros((self.batch, self.n), dtype=self.dtype,
+                           device=self.device)
+
+    def zeros_dual(self):
+        return torch.zeros((self.batch, self.m), dtype=self.dtype,
+                           device=self.device)
+
+    # -- matvecs --
+    def _data(self, name: str, dtype: torch.dtype):
+        """q_data or a_data in ``dtype``, cast once per operator."""
+        base = getattr(self, name)
+        if dtype == base.dtype:
+            return base
+        key = (name, dtype)
+        if key not in self._casts:
+            self._casts[key] = base.to(dtype)
+        return self._casts[key]
+
+    def _scatter_mv(self, name, rows, cols, x, out_dim, dtype):
+        """out[:, rows[k]] += data[:, k] * x[:, cols[k]], in ``dtype`` (the
+        state dtype when None) and returned in the state dtype."""
+        cd = self.dtype if dtype is None else resolve_dtype(dtype, self.dtype)
+        data = self._data(name, cd)
+        prod = data * x.index_select(1, cols).to(cd)
+        out = torch.zeros((x.shape[0], out_dim), dtype=cd, device=x.device)
+        out.index_add_(1, rows, prod)
+        return out.to(self.dtype)
+
+    def Qmv(self, x, dtype=None):
+        return self._scatter_mv("q_data", self.q_idx[:, 0], self.q_idx[:, 1],
+                                x, self.n, dtype)
+
+    def Amv(self, x, dtype=None):
+        return self._scatter_mv("a_data", self.a_idx[:, 0], self.a_idx[:, 1],
+                                x, self.m, dtype)
+
+    def Atmv(self, y, dtype=None):
+        # A' y re-uses the same triplets with roles swapped
+        return self._scatter_mv("a_data", self.a_idx[:, 1], self.a_idx[:, 0],
+                                y, self.n, dtype)
+
+    def _scatter_mv2(self, data, rows, cols, xa, xb, out_dim):
+        """Two right-hand sides in one scatter: (B, k, 2) products."""
+        X = torch.stack([xa, xb], dim=-1)
+        V = torch.zeros((X.shape[0], out_dim, 2), dtype=self.dtype,
+                        device=X.device)
+        V.index_add_(1, rows, data[:, :, None] * X.index_select(1, cols))
+        return V[..., 0], V[..., 1]
+
+    def Amv2(self, xa, xb):
+        return self._scatter_mv2(self.a_data, self.a_idx[:, 0],
+                                 self.a_idx[:, 1], xa, xb, self.m)
+
+    def Atmv2(self, ya, yb):
+        return self._scatter_mv2(self.a_data, self.a_idx[:, 1],
+                                 self.a_idx[:, 0], ya, yb, self.n)
+
+    def Qmv2(self, xa, xb):
+        return self._scatter_mv2(self.q_data, self.q_idx[:, 0],
+                                 self.q_idx[:, 1], xa, xb, self.n)
+
+    def diag_K(self, active, mu, sigma, proximal: bool):
+        """diag(K) in O(nnz) without forming K: diag(Q) + sigma +
+        sum_i (active_i/mu_i) A_ij^2 per column j."""
+        w = active / mu
+        rows, cols = self.a_idx[:, 0], self.a_idx[:, 1]
+        d = torch.zeros_like(self.diagQ)
+        d.index_add_(1, cols, w.index_select(1, rows) * torch.square(self.a_data))
+        d = d + self.diagQ
+        if proximal:
+            d = d + sigma[:, None]
+        return d
+
+    def _Kmv(self, w, sigma, proximal: bool):
+        def Kmv(v):
+            Kv = self.Qmv(v) + self.Atmv(w * self.Amv(v))
+            if proximal:
+                Kv = Kv + sigma[:, None] * v
+            return Kv
+        return Kmv
+
+    # -- preconditioners --
+    def _block_diagonal(self, pairs, qpart, w, nblocks, b):
+        """Stack of (B, nblocks, b, b) blocks: the w-weighted products of
+        same-row A pairs ``pairs`` = (t1, t2, rows, blk, o1, o2), then the
+        Q entries ``qpart`` = (t, blk, o1, o2), added in map order."""
+        t1, t2, rows_p, blk, o1, o2 = pairs
+        vals = self.a_data[:, t1] * self.a_data[:, t2] * w[:, rows_p]
+        M = torch.zeros((self.batch, nblocks * b * b), dtype=self.dtype,
+                        device=self.device)
+        M.index_add_(1, _flat(blk, o1, o2, b), vals)
+        tq, qblk, qo1, qo2 = qpart
+        M.index_add_(1, _flat(qblk, qo1, qo2, b), self.q_data[:, tq])
+        return M.view(self.batch, nblocks, b, b)
+
+    @staticmethod
+    def _lift_diagonal(M, sigma, proximal: bool):
+        """Add sigma (or 0) to the diagonal of every block, and 1 more where
+        the diagonal would stay at or below 0 (padded tail, untouched
+        variables)."""
+        diag = torch.diagonal(M, dim1=-2, dim2=-1)
+        shift = (sigma if proximal else torch.zeros_like(sigma))[:, None, None]
+        bump = torch.where(diag + shift > 0, shift, shift + 1.0)
+        diag.add_(bump)
+        return M
+
+    def _block_jacobi_apply(self, w, sigma, dinv_jacobi, settings: Settings):
+        """Build the block diagonal of K matrix-free and return the
+        preconditioner apply r -> M^-1 r (operators.py:859-913).
+
+        The blocks are assembled by scatter-adds over the precomputed
+        same-row, same-block pairs of A (pjA) and Q's in-block entries
+        (pjQ), then factored by one batched dense Cholesky in
+        ``precond_dtype``.  A block whose factor fails (NaN) falls back to
+        its Jacobi rows."""
+        b = settings.precond_block
+        n = self.n
+        nb = -(-n // b)
+        dt = self.dtype
+        Bn = self.batch
+        blocks = self._block_diagonal(self.pjA, self.pjQ, w, nb, b)
+        blocks = self._lift_diagonal(blocks, sigma, settings.proximal)
+        # factor in precond_dtype: the preconditioner only steers CG
+        pdt = resolve_dtype(settings.precond_dtype, dt)
+        chol = _cholesky_nan(blocks.to(pdt))
+        ok = torch.isfinite(chol).all(dim=-1).all(dim=-1)          # (B, nb)
+        pad = nb * b - n
+        ones = torch.ones((Bn, pad), dtype=dt, device=self.device)
+        dj = torch.cat([dinv_jacobi, ones], dim=1) if pad else dinv_jacobi
+        dj = dj.reshape(Bn, nb, b)
+
+        coarse = None
+        if settings.precond_two_level and self.pcA is not None:
+            coarse = self._coarse_apply(w, sigma, settings)
+
+        def apply(r):
+            rp = (torch.cat([r, torch.zeros((Bn, pad), dtype=dt,
+                                            device=r.device)], dim=1)
+                  if pad else r)
+            rb = rp.reshape(Bn, nb, b)
+            z = _tri_solve(chol, rb.to(pdt))
+            z = _tri_solve(chol, z, lower_trans=True).to(dt)
+            z = torch.where(ok[..., None], z, dj * rb)
+            z = z.reshape(Bn, nb * b)[:, :n]
+            if coarse is not None:
+                z = z + coarse(r)
+            return z
+
+        return apply
+
+    def _coarse_apply(self, w, sigma, settings: Settings):
+        """Two-level additive coarse correction r -> P Kc^-1 P' r with P
+        the piecewise-constant aggregation of ``precond_block`` columns
+        (operators.py:915-956): Kc = P'KP is assembled matrix-free from
+        the precomputed maps and factored densely at nc = ceil(n / block),
+        with a relative diagonal shift; a failed factor disables the
+        correction for that problem."""
+        dt = self.dtype
+        n = self.n
+        b = settings.precond_block
+        Bn = self.batch
+        nc = self.pc_counts.shape[0]
+        t1, t2, rows_p, J1, J2 = self.pcA
+        vals = self.a_data[:, t1] * self.a_data[:, t2] * w[:, rows_p]
+        qJ1, qJ2 = self.pcQ
+        Kc = torch.zeros((Bn, nc * nc), dtype=dt, device=self.device)
+        Kc.index_add_(1, J1 * nc + J2, vals)
+        Kc.index_add_(1, qJ1 * nc + qJ2, self.q_data)
+        Kc = Kc.view(Bn, nc, nc)
+        counts = self.pc_counts.to(dt)
+        shift = sigma if settings.proximal else torch.zeros_like(sigma)
+        diag = torch.diagonal(Kc, dim1=-2, dim2=-1)
+        diag.add_(shift[:, None] * counts)
+        # relative regularization keeps a semidefinite coarse matrix
+        # factorizable; a NaN factor disables the correction entirely
+        tr = torch.sum(torch.abs(diag), dim=-1) / nc
+        diag.add_((1e-10 * tr + 1e-30)[:, None])
+        pdt = resolve_dtype(settings.precond_dtype, dt)
+        cholc = _cholesky_nan(Kc.to(pdt))
+        ok = torch.isfinite(cholc).flatten(1).all(dim=1)
+        cgrid = torch.arange(n, device=self.device) // b
+
+        def coarse(r):
+            rc = torch.zeros((Bn, nc), dtype=dt, device=r.device)
+            rc.index_add_(1, cgrid, r)
+            z = _tri_solve(cholc, rc.to(pdt))
+            z = _tri_solve(cholc, z, lower_trans=True).to(dt)
+            z = torch.where(ok[:, None], z, torch.zeros_like(z))
+            return z.index_select(1, cgrid)
+
+        return coarse
+
+    # -- Newton solves --
+    def newton_exact(self, settings: Settings) -> bool:
+        """Whether ``newton_solve`` returns exact (direct) directions: only
+        the banded factorization does.  The full-step acceptance
+        (Settings.newton_full_step) is only sound for exact directions."""
+        return self.bd_shape is not None and settings.newton_direct
+
+    def _assemble_banded(self, w, sigma, settings: Settings):
+        """The block-tridiagonal form of K = Q + sigma*I + A'WA by
+        scatter-adds over the banded maps (operators.py:966-1016): D
+        (B, nb, b, b) diagonal blocks, E (B, max(nb-1, 1), b, b)
+        sub-diagonal blocks E_k = K[k+1, k], both Jacobi-equilibrated in
+        the state dtype (``banded_jacobi_scale``: S K S with S =
+        diag(K)^-1/2) and then cast to the KKT dtype.  Returns (D, E, s)."""
+        dt = self.dtype
+        nb, b = self.bd_shape
+        D = self._block_diagonal(self.bdA, self.bdQ, w, nb, b)
+        E = self._block_diagonal(self.bdAsub, self.bdQsub, w, max(nb - 1, 1),
+                                 b)
+        D = self._lift_diagonal(D, sigma, settings.proximal)
+        if settings.banded_jacobi_scale:
+            s = torch.rsqrt(torch.diagonal(D, dim1=-2, dim2=-1))  # (B, nb, b)
+            D = D * s[..., :, None] * s[..., None, :]
+            if nb > 1:
+                E = E * s[:, 1:, :, None] * s[:, :-1, None, :]
+        else:
+            s = torch.ones((self.batch, nb, b), dtype=dt, device=self.device)
+        kdt = resolve_dtype(settings.kkt_dtype, dt)
+        if kdt != dt:
+            D, E = D.to(kdt), E.to(kdt)
+        return D, E, s
+
+    @staticmethod
+    def _banded_factor_scan(D, E):
+        """Sequential block-tridiagonal Cholesky K = L L' with
+        block-bidiagonal L (operators.py:1064-1111), per problem of the
+        batch: L_0 = chol(D_0), M_k' = L_{k-1}^-1 E_{k-1}',
+        L_k = chol(D_k - M_k M_k').  A Python loop over the nb blocks.
+        Returns solve(rb: (B, nb, b)) -> (B, nb, b)."""
+        nb = D.shape[1]
+        Ls = [_cholesky_nan(D[:, 0])]
+        Mts = []
+        for k in range(1, nb):
+            Mt = torch.linalg.solve_triangular(Ls[-1], E[:, k - 1].mT,
+                                               upper=False)
+            Ls.append(_cholesky_nan(D[:, k] - Mt.mT @ Mt))
+            Mts.append(Mt)
+
+        def solve(rb):
+            # forward: u_k = L_k^-1 (r_k - M_k u_{k-1})
+            U = [_tri_solve(Ls[0], rb[:, 0])]
+            for k in range(1, nb):
+                prod = (Mts[k - 1].mT @ U[-1][..., None])[..., 0]
+                U.append(_tri_solve(Ls[k], rb[:, k] - prod))
+            # backward: z_k = L_k^-T (u_k - M_{k+1}' z_{k+1})
+            Z = [None] * nb
+            Z[nb - 1] = _tri_solve(Ls[nb - 1], U[nb - 1], lower_trans=True)
+            for k in range(nb - 2, -1, -1):
+                prod = (Mts[k] @ Z[k + 1][..., None])[..., 0]
+                Z[k] = _tri_solve(Ls[k], U[k] - prod, lower_trans=True)
+            return torch.stack(Z, dim=1)
+
+        return solve
+
+    def _banded_solve(self, w, sigma, rhs, settings: Settings):
+        """Exact block-tridiagonal solve of K dx = rhs
+        (operators.py:1208-1393), the banded-pattern replacement of the
+        reference's sparse LDL' (cholmod_interface.c:8-30, 98-102): the
+        scan factorization in the KKT dtype, refined on the true system
+        by state-dtype PCG preconditioned by the factor
+        (``banded_pcg_refine`` > 0, at most that many iterations) or by
+        monotone Richardson sweeps (0: ``refine_steps``, keeping the
+        better iterate by true residual), then, where the refined
+        residual of a problem stays above ``banded_escalate_rtol`` with a
+        reduced KKT dtype, a state-dtype re-factorization with one
+        correction sweep.
+
+        ``banded_algo`` "auto" is the scan on every device (the JAX
+        package picks cyclic reduction off the CPU); "cr" raises
+        NotImplementedError until ROADMAP.md Queue 1 item 4b.  The JAX
+        package's ``lax.cond`` around the escalation becomes, for a batch,
+        a per-problem select (as its ``vmap`` lowers it), computed only
+        when some problem fails the gate."""
+        if settings.banded_algo == "cr":
+            raise NotImplementedError(_CR_WAITS)
+        dt = self.dtype
+        nb, b = self.bd_shape
+        n = self.n
+        Bn = self.batch
+        pad = nb * b - n
+        kdt = resolve_dtype(settings.kkt_dtype, dt)
+        D, E, s = self._assemble_banded(w, sigma, settings)
+        Kmv = self._Kmv(w, sigma, settings.proximal)
+
+        def solver(factor, s_blocks, in_dtype):
+            s_flat = s_blocks.reshape(Bn, nb * b)[:, :n]
+
+            def solve(r):
+                r = (r * s_flat).to(in_dtype)
+                if pad:
+                    r = torch.cat([r, torch.zeros((Bn, pad), dtype=in_dtype,
+                                                  device=r.device)], dim=1)
+                z = factor(r.reshape(Bn, nb, b)).reshape(Bn, nb * b).to(dt)
+                return z[:, :n] * s_flat
+            return solve
+
+        solve = solver(self._banded_factor_scan(D, E), s, kdt)
+        rhs_n = torch.clamp(norm2(rhs), min=1e-30)
+        pcg_iters = int(settings.banded_pcg_refine)
+        if pcg_iters > 0:
+            tol = 1e-9 if dt == torch.float64 else 1e-5
+            dx, _, rel = pcg(Kmv, rhs, solve, tol, pcg_iters)
+            rn = rel * rhs_n
+        else:
+            dx = solve(rhs)
+            r = rhs - Kmv(dx)
+            rn = norm2(r)
+            for _ in range(settings.refine_steps):
+                dx_new = dx + solve(r)
+                r_new = rhs - Kmv(dx_new)
+                rn_new = norm2(r_new)
+                better = rn_new < rn
+                dx = bwhere(better, dx_new, dx)
+                r = bwhere(better, r_new, r)
+                rn = torch.where(better, rn_new, rn)
+
+        esc_rtol = settings.banded_escalate_rtol
+        auto = settings.robust_gate_auto
+        if esc_rtol > 0 and kdt != dt and (
+                not auto or settings.mu_min < _ESCALATE_MU_FLOOR):
+            esc_ok = rn <= esc_rtol * rhs_n          # False on NaN
+            if not bool(esc_ok.all()):
+                D64, E64, s64 = self._assemble_banded(
+                    w, sigma, settings.replace(kkt_dtype=None))
+                solve64 = solver(self._banded_factor_scan(D64, E64), s64, dt)
+                dx2 = solve64(rhs)
+                dx2 = dx2 + solve64(rhs - Kmv(dx2))
+                dx = bwhere(esc_ok, dx, dx2)
+        return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
+
+    def newton_solve(self, active, mu, sigma, rhs, settings: Settings,
+                     dx_prev=None, tol_hint=None):
+        """K dx = rhs per problem (operators.py:1395-1472): the banded
+        direct solve where the maps exist and ``newton_direct`` is set;
+        else matrix-free PCG warm-started from the previous direction, to
+        the Eisenstat-Walker tolerance clip(0.05 * eps_in / ||rhs||,
+        cg_tol, 1e-2), with the block-Jacobi (and two-level)
+        preconditioner or Jacobi; with ``cg_dtype`` set, mixed-precision
+        ``pcg_refined`` (inner CG, matvecs and preconditioner in
+        ``cg_dtype``, inside state-dtype refinement rounds)."""
+        w = active / mu
+        if self.bd_shape is not None and settings.newton_direct:
+            return self._banded_solve(w, sigma, rhs, settings)
+        proximal = settings.proximal
+        Kmv = self._Kmv(w, sigma, proximal)
+        tol = _ew_tol(settings.cg_tol, rhs, tol_hint)
+        block_jacobi = (settings.precond == "block_jacobi"
+                        and self.pjA is not None)
+
+        cg_dt = resolve_dtype(settings.cg_dtype, self.dtype)
+        if cg_dt != self.dtype:
+            op_lo = self.cast(cg_dt)
+            w_lo = w.to(cg_dt)
+            sigma_lo = sigma.to(cg_dt)
+            Kmv_lo = op_lo._Kmv(w_lo, sigma_lo, proximal)
+            d_lo = op_lo.diag_K(active.to(cg_dt), mu.to(cg_dt), sigma_lo,
+                                proximal)
+            pos = d_lo > 0
+            dinv_lo = torch.where(pos, 1.0 / torch.where(pos, d_lo, 1.0), 1.0)
+            precond_lo = (op_lo._block_jacobi_apply(w_lo, sigma_lo, dinv_lo,
+                                                    settings)
+                          if block_jacobi else dinv_lo)
+            dx, _, _ = pcg_refined(Kmv, Kmv_lo, rhs, precond_lo, tol,
+                                   settings.cg_max_iter,
+                                   settings.cg_refine_rounds, cg_dt,
+                                   x0=dx_prev)
+            return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
+
+        d = self.diag_K(active, mu, sigma, proximal)
+        pos = d > 0
+        dinv = torch.where(pos, 1.0 / torch.where(pos, d, 1.0), 1.0)
+        precond = (self._block_jacobi_apply(w, sigma, dinv, settings)
+                   if block_jacobi else dinv)
+        dx, _, _ = pcg(Kmv, rhs, precond, tol, settings.cg_max_iter,
+                       x0=dx_prev)
+        # NaN guard, mirroring the dense path
+        return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
+
+    def cast(self, dtype) -> "SparseOperator":
+        """Every float leaf of the operator's dtype in ``dtype`` (the index
+        maps are shared); the cast is kept, so that the mixed-precision CG
+        casts once per operator."""
+        if dtype == self.dtype:
+            return self
+        key = ("op", dtype)
+        if key not in self._casts:
+            from_dt = self.dtype
+            conv = lambda a: (a.to(dtype) if isinstance(a, torch.Tensor)
+                              and a.dtype == from_dt else a)
+            self._casts[key] = self._replace(
+                **{name: conv(getattr(self, name)) for name in self.FIELDS})
+        return self._casts[key]

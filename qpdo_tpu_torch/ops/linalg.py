@@ -80,14 +80,15 @@ def _jacobi_scale(K):
 
 
 def _cholesky_nan(Khat):
-    """Lower Cholesky factor per problem.  Like ``jnp.linalg.cholesky``,
-    the input is symmetrized first and a problem whose matrix is not
-    positive definite gets an all-NaN factor (``cholesky_ex`` reports it
-    instead of raising), so the callers' finiteness guards act on that
-    problem alone."""
+    """Lower Cholesky factor of every matrix of a (..., n, n) stack.  Like
+    ``jnp.linalg.cholesky``, the input is symmetrized first and a matrix
+    that is not positive definite gets an all-NaN factor (``cholesky_ex``
+    reports it instead of raising), so the callers' finiteness guards act
+    on that matrix alone."""
     Khat = (Khat + Khat.mT) / 2
     chol, info = torch.linalg.cholesky_ex(Khat)
-    return bwhere(info == 0, chol, torch.full_like(chol, float("nan")))
+    return torch.where((info == 0)[..., None, None], chol,
+                       torch.full_like(chol, float("nan")))
 
 
 def jacobi_cholesky(K):
@@ -98,6 +99,31 @@ def jacobi_cholesky(K):
     Khat = Khat + _static_reg(K.dtype) * torch.eye(n, dtype=K.dtype,
                                                    device=K.device)
     return _cholesky_nan(Khat), dinv
+
+
+def cholesky_solve(K, rhs, refine_steps: int = 0):
+    """Solve K dx = rhs per problem by the Jacobi-prescaled Cholesky
+    factor and ``refine_steps`` Richardson sweeps (``linalg.py:71-91`` of
+    the JAX package; ldlchol + ldlsolveLD_rhs, cholmod_interface.c:8-30,
+    98-102).  K is (B, n, n); ``rhs`` is (B, n) or a matrix of columns
+    (B, n, k).  A problem whose K is not positive definite gets NaN."""
+    chol, dinv = jacobi_cholesky(K)
+    matrix_rhs = rhs.dim() == K.dim()
+    drow = dinv[..., :, None] if matrix_rhs else dinv
+
+    def solve1(b):
+        bh = b * drow
+        if not matrix_rhs:
+            bh = bh[..., None]
+        z = torch.linalg.solve_triangular(chol, bh, upper=False)
+        z = torch.linalg.solve_triangular(chol.mT, z, upper=True)
+        return (z if matrix_rhs else z[..., 0]) * drow
+
+    Kmv = torch.matmul if matrix_rhs else mv
+    dx = solve1(rhs)
+    for _ in range(refine_steps):
+        dx = dx + solve1(rhs - Kmv(K, dx))
+    return dx
 
 
 def kkt_inverse(Q, A, active, mu, sigma, proximal: bool, kkt_dtype=None):

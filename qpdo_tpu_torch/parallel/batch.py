@@ -19,6 +19,7 @@ from ..operators import cast_scaled_problem
 from ..solver import core
 from ..solver.scaling import scale_problem
 from ..types import Problem, Result, ScaledProblem, Settings, SolverState, tree_map
+from ..utils import debug as _debug
 from ..validate import validate_fused_kkt
 
 
@@ -74,7 +75,7 @@ def _run_compact(sp_b: ScaledProblem, stg: Settings, state: SolverState,
     op = core.as_operator(sp_b)
     B = state.x.shape[0]
     K = max(1, B // 4)
-    mixed = core.mixed_mode(stg, op.dtype)
+    mixed = core.mixed_mode(stg, op)
     out = core.residual_outputs(state)
 
     def active_of(st):
@@ -98,6 +99,7 @@ def _run_compact(sp_b: ScaledProblem, stg: Settings, state: SolverState,
                 st = masked_step(st)
             if refresh is not None:
                 st = refresh(op, stg, st)
+            _debug.after_chunk(st)
 
         while bool(active_of(st).any()):
             order = torch.argsort((~active_of(st)).to(torch.int8), stable=True)

@@ -12,6 +12,14 @@ The carried KKT cache (``SolverState.kkt_cache``) is None, one (B, n, n)
 tensor (the explicit inverse of ``kkt_solver`` "inv" and "ns") or the
 pair (K_tilde, w_applied) of the incremental cache; ``select`` and
 ``masked`` pick it per problem like every other field.
+
+The core is written against the operator protocol of ``operators.py``
+(``DenseOperator``, ``SparseOperator``): every operator has a batch size,
+a device and a dtype, and the dense-only branches (the carried KKT cache,
+the mixed-GEMM phase, the fused right-hand side, reduced-precision
+cache-feeding matvecs, the stacked [Q; A] product, the polish) are gated
+on the operator's methods exactly where the JAX core gates them with
+``hasattr``.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from ..ops.fused_residuals import fused_residuals, kernel_outputs
 from ..ops.linalg import resolve_dtype
 from ..ops.linesearch import exact_linesearch
 from ..types import Info, Result, ScaledProblem, Settings, SolverState
+from ..utils import debug as _debug
 
 
 def as_operator(sp_or_op):
@@ -81,14 +90,17 @@ def select(mask, a, b):
 
 def _scalar(op, value, dtype=None):
     """A (B,) tensor filled with ``value`` in the operator's dtype."""
-    B = op.sp.data.q.shape[0]
-    return torch.full((B,), value, dtype=dtype or op.dtype, device=op.device)
+    return torch.full((op.batch,), value, dtype=dtype or op.dtype,
+                      device=op.device)
 
 
-def mixed_mode(settings: Settings, dt: torch.dtype) -> bool:
-    """The anchored mixed-GEMM phase: A-GEMMs in a dtype below the state's."""
+def mixed_mode(settings: Settings, op) -> bool:
+    """The anchored mixed-GEMM phase: A-GEMMs in a dtype below the state's,
+    on operators with the anchored hard-row products (core.py:232-234)."""
+    dt = op.dtype
     return (settings.phase2_gemm_dtype is not None
-            and resolve_dtype(settings.phase2_gemm_dtype, dt) != dt)
+            and resolve_dtype(settings.phase2_gemm_dtype, dt) != dt
+            and hasattr(op, "Amv_mixed"))
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +155,8 @@ def init_state(op, settings: Settings, x0=None, y0=None) -> SolverState:
     zero = _scalar(op, 0.0)
     i0 = _scalar(op, 0, torch.int32)
     kkt_cache = None
-    if settings.kkt_update_rows > 0 or settings.kkt_solver in ("inv", "ns"):
+    if ((settings.kkt_update_rows > 0 or settings.kkt_solver in ("inv", "ns"))
+            and hasattr(op, "kkt_cache_init")):
         # initial cache from the init-state active set (ybar = y)
         w0 = Ax + 0.5 * mu * y
         active0 = ((w0 <= op.l) | (w0 >= op.u)).to(dt)
@@ -205,7 +218,7 @@ def step(op, settings: Settings, s: SolverState,
          s.Ax, s.y, s.mu, s.ybar, op.l, op.u, op.E, op.Einv,
          s.Qx, op.q, s.Aty, s.x, s.xbar, op.Dinv, sig_eff, cinv,
          out=residual_out)
-    if settings.pallas_residuals:
+    if settings.pallas_residuals and isinstance(op, DenseOperator):
         # the fused branch of core.py:205-207: df recovered from the kernel
         df = res_dual_in - s.Aty
     elif settings.proximal:
@@ -215,7 +228,7 @@ def step(op, settings: Settings, s: SolverState,
 
     # ---- outer optimality / divergence (termination.c:11-23) ----
     infty = torch.full((), _c.QPDO_INFTY, dtype=dt, device=op.device)
-    mixed = mixed_mode(settings, dt)
+    mixed = mixed_mode(settings, op)
     eps_latch = eps_abs * 0.9 if mixed else eps_abs
     diverged = (res_prim_norm > infty) | (res_dual_norm > infty)
     solved = (res_prim_norm <= eps_latch) & (res_dual_norm <= eps_latch)
@@ -241,14 +254,17 @@ def step(op, settings: Settings, s: SolverState,
     dx_c = s.x - s.xbar  # dual certificate direction
 
     # reduced-precision cache-feeding matvecs (Qdx, A'ytilde) run in the
-    # KKT dtype: the dense operator re-anchors them (core.py:280-287)
-    ckdt = resolve_dtype(settings.kkt_dtype, dt)
+    # KKT dtype only on operators that re-anchor them (core.py:280-287);
+    # a matrix-free operator keeps them exact
+    ckdt = (resolve_dtype(settings.kkt_dtype, dt) if hasattr(op, "Amv_mixed")
+            else dt)
     pdt = resolve_dtype(settings.phase2_gemm_dtype, dt) if mixed else None
     cert_dt = settings.cert_dtype or settings.phase2_gemm_dtype
     cdt = resolve_dtype(cert_dt, dt)
     split_certs = check_inf and cdt != dt
 
-    if settings.fused_newton_rhs and s.kkt_cache is None:
+    if (settings.fused_newton_rhs and isinstance(op, DenseOperator)
+            and s.kkt_cache is None):
         # fused-rhs mode: the Newton solve forms rhs itself
         dx = op.newton_solve(active, s.mu, sigma, None, settings,
                              dx_prev=s.dx_prev, tol_hint=s.eps_in,
@@ -257,7 +273,7 @@ def step(op, settings: Settings, s: SolverState,
     else:
         At_ytilde = op.Atmv(ytilde, dtype=ckdt)
         rhs = -(res_dual_in + At_ytilde)
-        if s.kkt_cache is not None:
+        if s.kkt_cache is not None and hasattr(op, "newton_solve_cached"):
             dx, kkt_cache_new = op.newton_solve_cached(
                 active, s.mu, sigma, rhs, settings, s.kkt_cache,
                 dx_prev=s.dx_prev, tol_hint=s.eps_in)
@@ -278,8 +294,12 @@ def step(op, settings: Settings, s: SolverState,
         Adx_c_raw = op.Amv(dx_c, dtype=cdt)
         Qdx_c = op.Qmv(dx_c, dtype=cdt)
     elif check_inf:
-        if ckdt == dt:
+        if ckdt == dt and hasattr(op, "QAmv2"):
             Qdx_pure, Qdx_c, Adx, Adx_c_raw = op.QAmv2(dx, dx_c)
+        elif ckdt == dt:
+            # operators without the stacked [Q; A] product pair the columns
+            Qdx_pure, Qdx_c = op.Qmv2(dx, dx_c)
+            Adx, Adx_c_raw = op.Amv2(dx, dx_c)
         else:
             Qdx_pure = op.Qmv(dx, dtype=ckdt)
             Qdx_c = op.Qmv(dx_c)
@@ -472,7 +492,9 @@ def objective_value(op, x, Qx):
 def rebuild_kkt_cache(op, settings: Settings, s: SolverState) -> SolverState:
     """Exact rebuild of the carried KKT cache from the current state."""
     op = as_operator(op)
-    if settings.kkt_update_rows <= 0 and settings.kkt_solver not in ("inv", "ns"):
+    if ((settings.kkt_update_rows <= 0
+         and settings.kkt_solver not in ("inv", "ns"))
+            or not hasattr(op, "kkt_cache_init")):
         return s
     if (settings.kkt_solver in ("inv", "ns")
             and settings.kkt_update_rows <= 0
@@ -517,7 +539,7 @@ def run_loop(op, settings: Settings, s: SolverState,
     at most anchor_every masked steps, since each step advances iter or
     latches the status."""
     op = as_operator(op)
-    mixed = mixed_mode(settings, op.dtype)
+    mixed = mixed_mode(settings, op)
     K = settings.anchor_every
     out = residual_outputs(s)
     if not mixed and s.kkt_cache is None:
@@ -525,6 +547,7 @@ def run_loop(op, settings: Settings, s: SolverState,
             for _ in range(K):
                 s = masked(step(op, settings, s, out), s,
                            _loop_active(s, iter_cap))
+            _debug.after_chunk(s)
         return s
 
     refresh = reanchor if mixed else rebuild_kkt_cache
@@ -536,6 +559,7 @@ def run_loop(op, settings: Settings, s: SolverState,
         for _ in range(K):
             s = masked(step(op, settings, s, out), s, _loop_active(s, end))
         s = masked(refresh(op, settings, s), s, began)
+        _debug.after_chunk(s)
 
 
 @_with_matmul_precision
@@ -586,7 +610,7 @@ def polish_state(op, settings: Settings, s: SolverState) -> SolverState:
     SOLVED one also needs a strict decrease of max(rp, rd); an infeasible
     or non-convex latch is never touched."""
     op = as_operator(op)
-    if not settings.polish:
+    if not settings.polish or not hasattr(op, "saddle_polish"):
         return s
     eps_abs = settings.eps_abs
     # activity in the mu -> 0 limit (newton.c:96-107): z = Ax + E^2 cinv y

@@ -18,6 +18,8 @@ the state between them:
 Each printed row and each clock check reads the state on the host, which
 waits for the device: that is the price of the table.  One problem only
 (a batch of one), like the JAX driver; batches take ``solve_batch``.  The
+problem is a ``ScaledProblem`` (the dense path) or any operator of
+``operators.py`` (``solve_sparse`` hands in a ``SparseOperator``).  The
 JAX driver's crash snapshots and adaptive chunk sizes answer faults of
 the TPU runtime and have no counterpart.
 """
@@ -29,24 +31,25 @@ import time
 import torch
 
 from .. import constants as _c
-from ..types import Result, ScaledProblem, Settings
-from ..utils import printing
+from ..types import Result, Settings
+from ..utils import debug, printing
 from . import core
 
 _TIME_CHUNK = 32  # iterations between wall-clock checks
 
 
-def solve_driven(sp: ScaledProblem, settings: Settings, x0=None, y0=None,
+def solve_driven(sp, settings: Settings, x0=None, y0=None,
                  t_start: float = None) -> Result:
-    """``core.solve_scaled`` for one problem, with the iteration table
-    (``settings.verbose``) and the wall-clock limit (``settings.max_time``,
-    counted from ``t_start``, a ``time.perf_counter()`` reading; now when
-    None) layered on from the host."""
-    if sp.data.q.shape[0] != 1:
-        raise ValueError("the host-driven solve (verbose, max_time) takes a "
-                         f"batch of one problem, got {sp.data.q.shape[0]}")
-    t_start = time.perf_counter() if t_start is None else t_start
+    """``core.solve_scaled`` for one problem (a ``ScaledProblem`` or an
+    operator), with the iteration table (``settings.verbose``) and the
+    wall-clock limit (``settings.max_time``, counted from ``t_start``, a
+    ``time.perf_counter()`` reading; now when None) layered on from the
+    host."""
     op = core.as_operator(sp)
+    if op.batch != 1:
+        raise ValueError("the host-driven solve (verbose, max_time) takes a "
+                         f"batch of one problem, got {op.batch}")
+    t_start = time.perf_counter() if t_start is None else t_start
     timed_out = False
 
     def past_limit():
@@ -80,10 +83,11 @@ def solve_driven(sp: ScaledProblem, settings: Settings, x0=None, y0=None,
         printing.print_header("GPU" if op.device.type == "cuda" else "CPU")
         # the single-step loop bypasses run_loop's anchoring: re-anchor
         # from the host at the same cadence in the mixed-GEMM phase
-        mixed = core.mixed_mode(settings, op.dtype)
+        mixed = core.mixed_mode(settings, op)
         while running():
             prev = s
             s = core.step(op, settings, s)
+            debug.after_chunk(s)
             if mixed and int(s.iter) % settings.anchor_every == 0:
                 s = core.reanchor(op, settings, s)
             it = int(prev.iter)

@@ -18,13 +18,11 @@ from qpdo_tpu_torch.ops.linalg import fused_kkt_route
 from qpdo_tpu_torch.validate import validate_fused_kkt
 
 # The names of ``qpdo_tpu.__all__`` still to be ported, each waiting for
-# its item of ROADMAP.md Queue 1: the sparse path (item 4) brings
-# solve_sparse, solve_sparse_batch, solve_sparse_heterogeneous, the sparse
-# layer sparse_qp_layer, and the continuation solver with its grid
-# transfers (solve_continuation, grid1d_prolong, grid2d_interp), whose
-# levels run through solve_sparse.
-WAITING = {"solve_sparse", "solve_sparse_batch", "solve_sparse_heterogeneous",
-           "sparse_qp_layer", "solve_continuation", "grid1d_prolong",
+# its item of ROADMAP.md Queue 1: item 4b brings the sparse layer
+# sparse_qp_layer, and the continuation solver with its grid transfers
+# (solve_continuation, grid1d_prolong, grid2d_interp), whose levels run
+# through solve_sparse.
+WAITING = {"sparse_qp_layer", "solve_continuation", "grid1d_prolong",
            "grid2d_interp"}
 
 
