@@ -128,9 +128,10 @@ Phases (any failure raises and exits non-zero):
    printed: rounding moves it by up to 5 at n=1,000 on the CPU,
    scripts/sparse_cg_sensitivity.py, so by phase 9's rule the problem is
    held to its status) and x within ``CARD_CPU_X_BAND``; (d) a second-difference banded problem
-   (benchmarks/fuzz_sparse.py kind 0) at n=500 through ``solve_sparse`` at
-   the defaults: the banded scan route (``newton_exact``), SOLVED, oracle
-   at 1.1e-6, time per Newton step; (e) fleets: ``solve_sparse_batch`` of
+   (benchmarks/fuzz_sparse.py kind 0) at n=500 through ``solve_sparse``
+   at the defaults: the banded route (``newton_exact``; "auto" is cyclic
+   reduction on the card), SOLVED, oracle at 1.1e-6, time per Newton
+   step; (e) fleets: ``solve_sparse_batch`` of
    64 same-pattern n=1,000 instances, of 8 mixed patterns (union), and
    ``solve_sparse_heterogeneous`` of 8 sizes in 600-1,000: every problem
    SOLVED within the oracle; then the formation and residual kernels
@@ -140,10 +141,39 @@ Phases (any failure raises and exits non-zero):
    (f) ``PhaseTimer`` around a solve at least the
    solve's device time, ``trace`` writes a profiler file, a CUDA Result
    survives ``save_result``/``load_result`` bit for bit, back on the card.
+   14c also times the residual kernel's plain version (its library route)
+   at B=1 of its shape.
+15. The rest of the sparse path and the structured path (PHASE15_* sizes,
+   float64 state, ``Settings()`` unless stated): (a) the second-difference
+   problem at n=2,000 through ``banded_algo="auto"`` (cyclic reduction,
+   counted around ``SparseOperator._banded_factor_cr``), SOLVED within the
+   oracle, ms a Newton step and the CR levels; at n=500 through "cr" and
+   "scan": the same status and x within ``CR_SCAN_X_BAND`` of max|x|;
+   (b) the LISWET ladder of examples/continuation.py (500, 1,000, 2,000,
+   4,000; its settings, ``refine_final``) with the float64 factor, and
+   with ``kkt_dtype="float32", mu_min=1e-9, refine_steps=3`` on the
+   ladder 500, 1,000 (``PHASE15_LADDER_F32_N``), the scan fallbacks and
+   escalations counted: the finest level SOLVED within the oracle at
+   1.1e-6; (c) a two-stage stochastic QP (S=128, n0=20, ns=40, ms=60,
+   ``--seed``) through ``solver.structured``: SOLVED within a blockwise
+   numpy KKT oracle at 1.1e-6; at S=16 against ``to_dense_problem`` and
+   the dense ``solve``: the same status, x within ``DENSE_X_BAND``;
+   (d) ``sparse_qp_layer`` on the n=1,000 instance of
+   examples/large_sparse.py at ``LAYER_DIFF_MU`` on the card and on the
+   CPU: both forward solves within the oracle, both adjoint CG solves
+   converged to 1e-10, the card's five gradients within
+   ``LAYER_GRAD_RTOL`` of the CPU's; ``lasso_sparse`` and
+   ``huber_sparse`` of a 5,000 x 2,000 F (0.5% dense) SOLVED within the
+   oracle; (e) ``Amv``/``Atmv`` at 14c's shape through the ELL maps and
+   through the scatter (times, and their difference), and 14c's solve
+   again, its CG counts against 14c's; then the kernels against their
+   plain versions at every shape (a)-(d) gave them.
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (formation and residuals in both dtypes), with its launches on the
-path that runs it first and on each path; the last line is
+path that runs it first and on each path (phase 15 adds "cr",
+"continuation", "structured", "sparse_layer" and
+"sparse_applications"); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -612,13 +642,21 @@ def main() -> int:
 
     # ---- phase 14: files, the command line, utilities, the sparse path ----
     t0 = time.perf_counter()
-    launches14, sparse_shape, errs14 = phase14(pt, ff, fr, fk, card)
+    launches14, sparse_shape, errs14, first_solve = phase14(pt, ff, fr, fk,
+                                                            card)
     path_launches.update(launches14)
-    shapes_checked = collections.defaultdict(list)
-    for (name, dtype, shape), err in errs14.items():
-        max_err[(name, dtype)] = max(max_err[(name, dtype)], err)
-        shapes_checked[(name, dtype)].append(list(shape))
     print(f"phase 14 took {time.perf_counter() - t0:.1f} s, on {card}")
+
+    # ---- phase 15: CR, continuation, structured, the sparse layer, ELL ----
+    t0 = time.perf_counter()
+    launches15, errs15 = phase15(pt, ff, fr, fk, card, seed, first_solve)
+    path_launches.update(launches15)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s, on {card}")
+    shapes_checked = collections.defaultdict(list)
+    for (name, dtype, shape), err in {**errs14, **errs15}.items():
+        max_err[(name, dtype)] = max(max_err[(name, dtype)], err)
+        if list(shape) not in shapes_checked[(name, dtype)]:
+            shapes_checked[(name, dtype)].append(list(shape))
 
     # ---- phase 5: time per call: kernel, plain version, library route ----
     rows = phase5(ff, fr, fk, tl)
@@ -1544,8 +1582,9 @@ PHASE14_SMALL_N = 1_000
 # the card-against-CPU copy, cut from 1,000 (12.2 s on the card and 6.4 s
 # on the CPU) to fit the phase's time
 PHASE14_CPU_N = 500
-# cut from 2,000 (749 iterations at 223 ms a Newton step on the card, 167
-# s) to fit the phase's time
+# cut from 2,000: the banded route is cyclic reduction on the card (26
+# ms a Newton step at n=2,000 on an H100, 19.4 s; the scan took 223 ms,
+# 167 s), and 15a solves the n=2,000 problem through it
 PHASE14_BANDED_N = 500
 PHASE14_FLEET_B = 64
 PHASE14_HETERO_N = (600, 660, 720, 780, 840, 900, 960, 1000)
@@ -1736,14 +1775,14 @@ def timed_solve(fn):
 def phase14(pt, ff, fr, fk, card):
     """Files, the command line, the utilities and the sparse path on the
     card.  Returns ({"cli": launches, "sparse": launches}, the residual
-    kernel's times at B=1 of the full-width sparse shape, and the kernels'
-    errors at each shape the path gave them, as check_path_shapes)."""
+    kernel's times at B=1 of the full-width sparse shape, the kernels'
+    errors at each shape the path gave them, as check_path_shapes, and
+    14c's solve (cg_counted_solve, with "run" to solve it again))."""
     import os
     import shutil
     import tempfile
 
     import qpdo_tpu_torch.__main__ as cli
-    from qpdo_tpu_torch import operators
     from qpdo_tpu_torch.io import QPSData, read_qps, write_qps
     from qpdo_tpu_torch.native import read_qps_native
     from qpdo_tpu_torch.solver.sparse import setup_sparse
@@ -1816,33 +1855,20 @@ def phase14(pt, ff, fr, fk, card):
             raise AssertionError("phase 14b: the parsers disagree")
 
         # ---- 14c: sparse CG at full width ----
-        # the CG solves of the Newton steps, counted around the operator's
-        # pcg (this problem is not banded: every pcg call is a Newton solve)
-        cg = [0, 0]
-        pcg = operators.pcg
-
-        def counting(*args, **kwargs):
-            out = pcg(*args, **kwargs)
-            cg[0] += 1
-            cg[1] = cg[1] + out[1].sum()
-            return out
-
         reset_counts(ff, fr, fk)
-        operators.pcg = counting
-        try:
-            with recording_shapes(shapes):
-                res, wall = timed_solve(
-                    lambda: pt.solve_sparse(Q, q, A, l, u))
-        finally:
-            operators.pcg = pcg
+        with recording_shapes(shapes):
+            first = cg_counted_solve(pt, big)
+        first["run"] = lambda: cg_counted_solve(pt, big)
+        res, wall = first["res"], first["wall"]
         launches["sparse"] = launch_counts(ff, fr, fk)
-        its = int(res.info.iterations[0])
+        its = first["iterations"]
         print(f"phase 14c: solve_sparse n={PHASE14_N} m={A.shape[0]} "
               f"nnz(Q)={Q.nnz} nnz(A)={A.nnz} on the card: "
               f"{res.info.status[0]} in {its} iterations, {wall:.2f} s "
-              f"({wall / max(its, 1) * 1e3:.1f} ms an iteration), {cg[0]} "
-              f"CG solves, {float(cg[1]) / max(cg[0], 1):.1f} CG iterations "
-              f"a Newton step, kernel launches "
+              f"({wall / max(its, 1) * 1e3:.1f} ms an iteration), "
+              f"{first['cg_solves']} CG solves, "
+              f"{first['cg_iterations'] / max(first['cg_solves'], 1):.1f} CG "
+              f"iterations a Newton step, kernel launches "
               f"{printable(launches['sparse'])}")
         check_sparse(pt, [big], res, "phase 14c solve_sparse")
         require_launched(launches["sparse"], "phase 14c", ("residuals", F64))
@@ -1856,14 +1882,20 @@ def phase14(pt, ff, fr, fk, card):
         m_big = A.shape[0]
         rargs = residual_inputs(F64, b=1, m=m_big, n=PHASE14_N)
         rk = lambda: fr.fused_residuals(*rargs)
+        plain = lambda: fr.reference_residuals(*rargs)
         bms, by, nbytes = residual_bound(1, m_big, PHASE14_N, F64)
         sparse_shape = dict(B=1, m=m_big, n=PHASE14_N, ms=time_ms(rk),
-                            device_ms=device_ms(rk), bound_ms=bms,
-                            bound_by=by, bytes=nbytes)
+                            device_ms=device_ms(rk), plain_ms=time_ms(plain),
+                            library_route_device_ms=device_ms(plain),
+                            bound_ms=bms, bound_by=by, bytes=nbytes)
         print(f"phase 14c: residual kernel float64 at B=1 m={m_big} "
               f"n={PHASE14_N}: {sparse_shape['ms']:.5f} ms as called, "
               f"{sparse_shape['device_ms']:.5f} ms on the card alone, bound "
-              f"{bms:.5f} ms (by {by}, {nbytes / 1e6:.2f} MB)")
+              f"{bms:.5f} ms (by {by}, {nbytes / 1e6:.2f} MB); its plain "
+              f"version (the library route: ATen elementwise and reduction "
+              f"kernels) {sparse_shape['plain_ms']:.5f} ms as called, "
+              f"{sparse_shape['library_route_device_ms']:.5f} ms on the card "
+              f"alone")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "qpdo_tpu_torch", "--sparse",
@@ -1906,7 +1938,7 @@ def phase14(pt, ff, fr, fk, card):
         check_sparse(pt, [small], both[DEVICE][0],
                      f"phase 14c n={PHASE14_CPU_N} card")
 
-        # ---- 14d: the banded scan ----
+        # ---- 14d: the banded route (cyclic reduction on the card) ----
         band = second_difference(PHASE14_BANDED_N)
         exact = setup_sparse(*band).newton_exact(pt.Settings())
         with recording_shapes(shapes):
@@ -1988,7 +2020,401 @@ def phase14(pt, ff, fr, fk, card):
             raise AssertionError("phase 14f: trace or checkpoint")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, sparse_shape, errs
+    return launches, sparse_shape, errs, first
+
+
+@contextlib.contextmanager
+def recording_pcg(calls):
+    """Append to ``calls`` the (iterations, final relative residual) of
+    problem 0 of every CG solve the sparse operator makes while the
+    context is open."""
+    from qpdo_tpu_torch import operators
+
+    pcg = operators.pcg
+
+    def recorded(*args, **kwargs):
+        out = pcg(*args, **kwargs)
+        calls.append((int(out[1][0]), float(out[2][0])))
+        return out
+
+    operators.pcg = recorded
+    try:
+        yield calls
+    finally:
+        operators.pcg = pcg
+
+
+def cg_counted_solve(pt, data):
+    """``solve_sparse`` of ``data`` on the card with its CG solves counted
+    (a problem that is not banded: every CG solve is a Newton solve).
+    Returns the result, the wall time, the iterations, the CG solves and
+    CG iterations, and x."""
+    calls = []
+    with recording_pcg(calls):
+        res, wall = timed_solve(lambda: pt.solve_sparse(*data))
+    return dict(res=res, wall=wall, iterations=int(res.info.iterations[0]),
+                cg_solves=len(calls),
+                cg_iterations=sum(its for its, _ in calls), x=res.x)
+
+
+# the sizes of phase 15: the banded problem of 14d uncut, and the pair
+# that holds cyclic reduction against the scan
+PHASE15_BANDED_N = 2_000
+PHASE15_PAIR_N = 500
+# examples/continuation.py at its default N: the ladder 500, 1,000, 2,000,
+# 4,000 and the example's settings
+PHASE15_LADDER_N = 4_000
+# a two-stage stochastic QP: S scenarios of ns variables and ms rows
+# coupled through n0 first-stage variables (n = 5,140, m = 7,680), and
+# the scenario count of its dense comparison
+PHASE15_S, PHASE15_N0, PHASE15_NS, PHASE15_MS = 128, 20, 40, 60
+PHASE15_DENSE_S = 16
+# the sparse layer on the n=1,000 instance of examples/large_sparse.py,
+# and the sparse applications' data: F of N x p at this density
+PHASE15_LAYER_N = 1_000
+PHASE15_F = (5_000, 2_000, 0.005)
+# cyclic reduction against the scan: x within this share of max|x|; the
+# structured solve against its dense form: x within this band
+CR_SCAN_X_BAND = 1e-6
+DENSE_X_BAND = 1e-6
+# the sparse layer's card gradients against the CPU's, relative to the
+# largest entry of each gradient, at a diff_mu where the adjoint CG
+# converges: at the default 1e-8 the adjoint of this instance has cond
+# 2.0e10 and its CG stops at the 2,000-iteration cap, 15% off numpy's
+# solve (scripts/sparse_layer_adjoint.py), on the CPU as on the card
+LAYER_GRAD_RTOL = 1e-5
+LAYER_DIFF_MU = 1e-2
+# the float32-factor ladder of 15b, cut from N=4,000 (294.0 s on the card:
+# 668 float32 scan fallbacks and 601 float64 escalations, each a scan
+# factorization) to the ladder 500, 1,000
+PHASE15_LADDER_F32_N = 1_000
+
+
+def cr_levels(nb):
+    """The levels of cyclic reduction at full depth on nb blocks."""
+    levels = 0
+    while nb > 1:
+        nb -= nb // 2
+        levels += 1
+    return levels
+
+
+@contextlib.contextmanager
+def counting_factors(counts):
+    """Count, in ``counts``, the banded factorizations the solver makes
+    while the context is open: cyclic reduction ("cr") and the scan by the
+    dtype of its factor ("scan float32": the CR fallback's, or "scan
+    float64")."""
+    from qpdo_tpu_torch import operators
+
+    cls = operators.SparseOperator
+    scan, cr = cls._banded_factor_scan, cls._banded_factor_cr
+
+    def counted_scan(D, E):
+        key = f"scan {str(D.dtype).replace('torch.', '')}"
+        counts[key] = counts.get(key, 0) + 1
+        return scan(D, E)
+
+    def counted_cr(*args):
+        counts["cr"] = counts.get("cr", 0) + 1
+        return cr(*args)
+
+    cls._banded_factor_scan = staticmethod(counted_scan)
+    cls._banded_factor_cr = staticmethod(counted_cr)
+    try:
+        yield counts
+    finally:
+        cls._banded_factor_scan = staticmethod(scan)
+        cls._banded_factor_cr = staticmethod(cr)
+
+
+def liswet(n, d):
+    """examples/continuation.py's LISWET problem: min 0.5||x - d||^2
+    s.t. x_i - 2 x_{i+1} + x_{i+2} >= 0 (with Q = (1 + 1e-3) I)."""
+    import scipy.sparse as sps
+
+    m = n - 2
+    rows = np.repeat(np.arange(m), 3)
+    cols = (np.arange(m)[:, None] + np.arange(3)[None, :]).ravel()
+    A = sps.csr_matrix((np.tile([1.0, -2.0, 1.0], m), (rows, cols)),
+                       shape=(m, n))
+    return (sps.eye(n, format="csr") * (1.0 + 1e-3), -d, A, np.zeros(m),
+            np.full(m, np.inf))
+
+
+def liswet_ladder(N):
+    """examples/continuation.py's ladder: the levels halve from N down to
+    the first at most 700, the data d = sin(4 pi t) + noise (seed 42) of
+    the finest grid interpolated onto each."""
+    rng = np.random.default_rng(42)
+    t_fine = np.linspace(0, 1, N)
+    d_fine = np.sin(4 * np.pi * t_fine) + 0.1 * rng.standard_normal(N)
+    levels = [N]
+    while levels[0] > 700:
+        levels.insert(0, (levels[0] + 1) // 2)
+    return levels, [liswet(n, np.interp(np.linspace(0, 1, n), t_fine,
+                                        d_fine)) for n in levels]
+
+
+def block_angular(S, ms, n0, ns, seed):
+    """tests/test_structured.py:_random_bap at these sizes: numpy float64
+    arrays of one two-stage problem."""
+    rng = np.random.default_rng(seed)
+    M0 = rng.standard_normal((n0, n0)) / np.sqrt(n0)
+    Ms = rng.standard_normal((S, ns, ns)) / np.sqrt(ns)
+    return (M0 @ M0.T + 0.5 * np.eye(n0),
+            np.einsum("sij,skj->sik", Ms, Ms) + 0.5 * np.eye(ns),
+            rng.standard_normal(n0), rng.standard_normal((S, ns)),
+            rng.standard_normal((S, ms, n0)) * 0.5,
+            rng.standard_normal((S, ms, ns)),
+            -rng.random((S, ms)) - 0.1, rng.random((S, ms)) + 0.1,
+            np.asarray(0.0))
+
+
+def block_angular_oracle(p, x0, xs, y):
+    """The KKT residuals of a two-stage problem, blockwise in numpy
+    float64: (max|Ax - clip(Ax + y, l, u)|, max|Qx + q + A'y|)."""
+    Q0, Qs, q0, qs, T, W, l, u, _ = p
+    Ax = np.einsum("smn,n->sm", T, x0) + np.einsum("smk,sk->sm", W, xs)
+    rp = np.abs(Ax - np.clip(Ax + y, l, u)).max()
+    rd0 = Q0 @ x0 + q0 + np.einsum("smn,sm->n", T, y)
+    rds = np.einsum("sij,sj->si", Qs, xs) + qs + np.einsum("smk,sm->sk", W, y)
+    return float(rp), float(max(np.abs(rd0).max(), np.abs(rds).max()))
+
+
+def sparse_regression(N, p, density, seed):
+    """F (N x p, scipy CSR) of ``density`` with normal entries, a sparse
+    truth of 20 entries and b = F x + 0.01 noise, from ``seed``: the data
+    of tests/test_applications.py:test_lasso_sparse_large at this size."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    F = sps.random(N, p, density=density, random_state=seed, format="csr")
+    F.data[:] = rng.standard_normal(F.nnz)
+    x_true = np.zeros(p)
+    x_true[rng.choice(p, 20, replace=False)] = rng.standard_normal(20) * 2.0
+    return F, F @ x_true + 0.01 * rng.standard_normal(N)
+
+
+def phase15(pt, ff, fr, fk, card, seed, first_solve):
+    """Cyclic reduction, the continuation ladder, the structured solve,
+    the sparse layer and applications, and ELL against the scatter, on
+    the card.  Returns (launches by path, the kernels' errors at each
+    shape these paths gave them, as check_path_shapes)."""
+    from qpdo_tpu_torch.solver import structured
+    from qpdo_tpu_torch.solver.sparse import setup_sparse
+
+    launches = {}
+    shapes = set()
+
+    # ---- 15a: cyclic reduction against the scan ----
+    band = second_difference(PHASE15_BANDED_N)
+    nb, b = setup_sparse(*band).bd_shape
+    factors = {}
+    reset_counts(ff, fr, fk)
+    with recording_shapes(shapes), counting_factors(factors):
+        res, wall = timed_solve(lambda: pt.solve_sparse(*band))
+    launches["cr"] = launch_counts(ff, fr, fk)
+    its = int(res.info.iterations[0])
+    print(f"phase 15a: second difference n={PHASE15_BANDED_N} (nb={nb} "
+          f"blocks of {b}, {cr_levels(nb)} CR levels) through "
+          f"banded_algo='auto': {res.info.status[0]} in {its} iterations, "
+          f"{wall:.2f} s, {wall / max(its, 1) * 1e3:.2f} ms a Newton step, "
+          f"factorizations {factors}, kernel launches "
+          f"{printable(launches['cr'])}", flush=True)
+    check_sparse(pt, [band], res, "phase 15a auto")
+    require_launched(launches["cr"], "phase 15a", ("residuals", F64))
+    if not factors.get("cr") or factors.get("scan float64"):
+        raise AssertionError("phase 15a: 'auto' did not take cyclic "
+                             "reduction on the card")
+    pair = second_difference(PHASE15_PAIR_N, seed=1)
+    runs = {}
+    for algo in ("cr", "scan"):
+        with recording_shapes(shapes):
+            runs[algo] = timed_solve(lambda: pt.solve_sparse(
+                *pair, settings=pt.Settings(banded_algo=algo)))
+    xs = {a: r.x[0].cpu().numpy() for a, (r, _) in runs.items()}
+    gap = np.abs(xs["cr"] - xs["scan"]).max() / np.abs(xs["scan"]).max()
+    print(f"phase 15a: n={PHASE15_PAIR_N}: " + "; ".join(
+        f"{a} {r.info.status[0]} in {int(r.info.iterations[0])} iterations,"
+        f" {w:.2f} s, {w / max(int(r.info.iterations[0]), 1) * 1e3:.2f} ms "
+        f"a Newton step" for a, (r, w) in runs.items())
+        + f"; max|x cr - x scan| / max|x| {gap:.3e}", flush=True)
+    if not (runs["cr"][0].info.status == runs["scan"][0].info.status
+            and gap <= CR_SCAN_X_BAND):
+        raise AssertionError(f"phase 15a: CR and the scan disagree (x "
+                             f"within {CR_SCAN_X_BAND} of max|x|?)")
+    check_sparse(pt, [pair], runs["cr"][0], "phase 15a cr")
+
+    # ---- 15b: the LISWET ladder of examples/continuation.py ----
+    example = pt.Settings(eps_abs=1e-6, max_iter=100000, inner_max_iter=100,
+                          eps_abs_in=0.1, rho=0.2, delta=1e-4, theta=0.9)
+    reset_counts(ff, fr, fk)
+    for name, settings, N in (
+            ("float64 factor", example, PHASE15_LADDER_N),
+            ("float32 factor", example.replace(kkt_dtype="float32",
+                                               mu_min=1e-9, refine_steps=3),
+             PHASE15_LADDER_F32_N)):
+        levels, ladder = liswet_ladder(N)
+        factors = {}
+        per_level = []
+        with recording_shapes(shapes), counting_factors(factors):
+            out, wall = timed_solve(lambda: pt.solve_continuation(
+                ladder, settings,
+                prolong=lambda x, y, i: pt.grid1d_prolong(
+                    levels[i], levels[i + 1], order=2)(x, y),
+                return_all=True, refine_final=True,
+                progress=lambda i, r: per_level.append(
+                    (levels[i], r.info.status[0],
+                     int(r.info.iterations[0])))))
+        fine = out[-1]
+        rp, rd = sparse_oracle(*ladder[-1], fine.x[0].cpu().numpy(),
+                               fine.y[0].cpu().numpy())
+        print(f"phase 15b: ladder {levels}, {name}: per level (n, status, "
+              f"iterations) {per_level}, finest {fine.info.status[0]} in "
+              f"{int(fine.info.iterations[0])} iterations (after "
+              f"refine_final), {wall:.2f} s, factorizations {factors}, "
+              f"oracle {rp:.3e}, {rd:.3e}", flush=True)
+        if not (fine.info.status == ["solved"] and rp <= 1.1e-6
+                and rd <= 1.1e-6 and on_card(fine.x, fine.y)):
+            raise AssertionError(f"phase 15b {name}: the finest level")
+    launches["continuation"] = launch_counts(ff, fr, fk)
+    require_launched(launches["continuation"], "phase 15b",
+                     ("residuals", F64))
+
+    # ---- 15c: a two-stage stochastic QP through the structured path ----
+    S, n0, ns, ms = PHASE15_S, PHASE15_N0, PHASE15_NS, PHASE15_MS
+    p = block_angular(S, ms, n0, ns, seed)
+    reset_counts(ff, fr, fk)
+    with recording_shapes(shapes):
+        res, wall = timed_solve(
+            lambda: structured.solve_block_angular_result(
+                structured.BlockAngularProblem(*p)))
+    launches["structured"] = launch_counts(ff, fr, fk)
+    its = int(res.info.iterations[0])
+    x0, xs, y = (v[0].cpu().numpy() for v in (*res.x, res.y))
+    rp, rd = block_angular_oracle(p, x0, xs, y)
+    print(f"phase 15c: S={S} n0={n0} ns={ns} ms={ms} (n={n0 + S * ns}, "
+          f"m={S * ms}): {res.info.status[0]} in {its} iterations, "
+          f"{wall:.2f} s ({wall / max(its, 1) * 1e3:.2f} ms an iteration), "
+          f"oracle {rp:.3e}, {rd:.3e}, kernel launches "
+          f"{printable(launches['structured'])}", flush=True)
+    if not (res.info.status == ["solved"] and rp <= 1.1e-6 and rd <= 1.1e-6
+            and on_card(*res.x, res.y)):
+        raise AssertionError("phase 15c: the structured solve")
+    require_launched(launches["structured"], "phase 15c", ("residuals", F64))
+    small = structured.BlockAngularProblem(*block_angular(
+        PHASE15_DENSE_S, ms, n0, ns, seed))
+    with recording_shapes(shapes):
+        sres = structured.solve_block_angular_result(small)
+        dense = pt.solve(structured.to_dense_problem(small))
+    gap = (torch.cat([sres.x[0], sres.x[1].flatten(1)], 1)
+           - dense.x).abs().max().item()
+    print(f"phase 15c: S={PHASE15_DENSE_S}: structured "
+          f"{sres.info.status[0]} in {int(sres.info.iterations[0])} "
+          f"iterations, dense {dense.info.status[0]} in "
+          f"{int(dense.info.iterations[0])}; max|x structured - x dense| "
+          f"{gap:.3e}", flush=True)
+    if not (sres.info.status == dense.info.status == ["solved"]
+            and gap <= DENSE_X_BAND):
+        raise AssertionError("phase 15c: structured against dense")
+
+    # ---- 15d: the sparse layer and the sparse applications ----
+    Q, q, A, l, u = large_sparse(PHASE15_LAYER_N, PHASE15_LAYER_N // 2)
+    rng = np.random.default_rng(seed + 15)
+    gx, gy = rng.standard_normal(Q.shape[0]), rng.standard_normal(A.shape[0])
+    values = (Q.tocsr().tocoo().data, A.tocsr().tocoo().data, q, l, u)
+    grads, times, adjoint = {}, {}, {}
+    reset_counts(ff, fr, fk)
+    for dev in (DEVICE, "cpu"):
+        layer = pt.sparse_qp_layer(Q, A, diff_mu=LAYER_DIFF_MU, device=dev)
+        ts = [torch.tensor(v, device=dev, requires_grad=True)
+              for v in values]
+        calls = []
+        with recording_shapes(shapes):
+            (x, y), fwd = timed_solve(lambda: layer(*ts))
+            loss = ((torch.as_tensor(gx, device=dev) * x).sum()
+                    + (torch.as_tensor(gy, device=dev) * y).sum())
+            with recording_pcg(calls):
+                g, bwd = timed_solve(lambda: torch.autograd.grad(loss, ts))
+        rp, rd = sparse_oracle(Q, q, A, l, u, x.detach().cpu().numpy(),
+                               y.detach().cpu().numpy())
+        adjoint[dev] = calls[-1]
+        if not (rp <= 1.1e-6 and rd <= 1.1e-6 and calls[-1][1] <= 1e-10):
+            raise AssertionError(f"phase 15d: the layer's forward solve or "
+                                 f"adjoint on {dev} did not converge (oracle"
+                                 f" {rp}, {rd}; adjoint CG {calls[-1]})")
+        grads[dev] = [t.cpu().numpy() for t in g]
+        times[dev] = (fwd, bwd)
+        if dev == DEVICE:
+            launches["sparse_layer"] = launch_counts(ff, fr, fk)
+            if not on_card(x, y, *g):
+                raise AssertionError("phase 15d: the layer left the card")
+    errs = [np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+            for a, b in zip(grads[DEVICE], grads["cpu"])]
+    print(f"phase 15d: sparse_qp_layer n={Q.shape[0]} m={A.shape[0]} "
+          f"diff_mu {LAYER_DIFF_MU}: forward {times[DEVICE][0]:.2f} s, "
+          f"backward {times[DEVICE][1]:.2f} s on the card (CPU "
+          f"{times['cpu'][0]:.2f}, {times['cpu'][1]:.2f} s); adjoint CG "
+          f"(iterations, relative residual) card {adjoint[DEVICE]}, CPU "
+          f"{adjoint['cpu']}; card gradients against the CPU's, relative to "
+          f"max|g|: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in
+                      zip(("q_data", "a_data", "q", "l", "u"), errs)),
+          flush=True)
+    require_launched(launches["sparse_layer"], "phase 15d",
+                     ("residuals", F64))
+    if not max(errs) <= LAYER_GRAD_RTOL:
+        raise AssertionError(f"phase 15d: card gradients beyond "
+                             f"{LAYER_GRAD_RTOL} of the CPU's")
+    N_f, p_f, density = PHASE15_F
+    F, b_f = sparse_regression(N_f, p_f, density, seed + 10)
+    ladder_like = pt.Settings(eps_abs=1e-6, max_iter=20000,
+                              inner_max_iter=100, eps_abs_in=0.1, rho=0.02,
+                              delta=0.1)
+    reset_counts(ff, fr, fk)
+    for name, data in (("lasso_sparse", pt.applications.lasso_sparse(
+                            F, b_f, 0.05)),
+                       ("huber_sparse", pt.applications.huber_sparse(
+                           F, b_f, 0.5))):
+        with recording_shapes(shapes):
+            res, wall = timed_solve(lambda: pt.solve_sparse(
+                *data, settings=ladder_like))
+        print(f"phase 15d: {name} F {N_f}x{p_f} ({F.nnz} nonzeros): n="
+              f"{data[0].shape[0]} m={data[2].shape[0]}, "
+              f"{res.info.status[0]} in {int(res.info.iterations[0])} "
+              f"iterations, {wall:.2f} s", flush=True)
+        check_sparse(pt, [data], res, f"phase 15d {name}")
+    launches["sparse_applications"] = launch_counts(ff, fr, fk)
+
+    # ---- 15e: ELL against the scatter at 14c's shape ----
+    big = large_sparse(PHASE14_N, PHASE14_M_INEQ)
+    op = setup_sparse(*big)
+    if op.ellA is None or op.ellAt is None:
+        raise AssertionError("phase 15e: no ELL maps on the card")
+    scatter = op._replace(ellQ=None, ellA=None, ellAt=None)
+    xv = torch.randn((1, op.n), dtype=F64, device=DEVICE)
+    yv = torch.randn((1, op.m), dtype=F64, device=DEVICE)
+    for name, v in (("Amv", xv), ("Atmv", yv)):
+        fe, fs = (lambda o=o: getattr(o, name)(v) for o in (op, scatter))
+        gap = (fe() - fs()).abs().max().item()
+        print(f"phase 15e: {name} at n={op.n} m={op.m}: ELL "
+              f"{time_ms(fe):.5f} ms as called, {device_ms(fe):.5f} ms on "
+              f"the card alone; scatter {time_ms(fs):.5f}, "
+              f"{device_ms(fs):.5f}; max|ELL - scatter| {gap:.3e}",
+              flush=True)
+    again = first_solve["run"]()
+    print(f"phase 15e: 14c's solve again through ELL: {again['iterations']}"
+          f" iterations, {again['cg_iterations']} CG iterations in "
+          f"{again['cg_solves']} CG solves (14c: {first_solve['iterations']},"
+          f" {first_solve['cg_iterations']} in {first_solve['cg_solves']}); "
+          f"x {'bit for bit equal' if torch.equal(again['x'], first_solve['x']) else 'different'}"
+          f" (max|dx| "
+          f"{(again['x'] - first_solve['x']).abs().max().item():.3e})",
+          flush=True)
+
+    errs = check_path_shapes(ff, fr, shapes, "phase 15 shapes")
+    return launches, errs
 
 
 def flat_tensors(tree):

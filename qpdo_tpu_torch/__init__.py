@@ -11,7 +11,11 @@ table and time limit of the host-driven loop); the differentiable layer
 ``SolverService``; the canonical problems of ``applications``; the sparse
 large-n path (``solve_sparse``, ``solve_sparse_batch``,
 ``solve_sparse_heterogeneous``: matrix-free preconditioned CG, or the
-exact banded factorization on banded patterns); QPS files
+exact banded factorization, sequential or by cyclic reduction, on banded
+patterns) with its layer ``sparse_qp_layer`` and coarse-to-fine ladders
+(``solve_continuation``, ``grid1d_prolong``, ``grid2d_interp``); the
+scenario-structured solve (``qpdo_tpu_torch.solver.structured``: a
+Schur-complement Newton solve over the scenarios); QPS files
 (``qpdo_tpu_torch.io``, the native parser ``qpdo_tpu_torch.native``) and
 the command line ``python -m qpdo_tpu_torch``.  It
 runs on the device of its tensors: on an NVIDIA GPU through hand-written
@@ -30,7 +34,8 @@ from .api import (QPDO, make_problem, solve, solve_sparse, solve_sparse_batch,
 from .constants import (DUAL_INFEASIBLE, MAX_ITER_REACHED, MAX_TIME_REACHED,
                         NON_CVX, PRIMAL_INFEASIBLE, QPDO_INFTY, SOLVED,
                         UNSOLVED)
-from .diff import qp_solve
+from .continuation import grid1d_prolong, grid2d_interp, solve_continuation
+from .diff import qp_solve, sparse_qp_layer
 from .parallel.batch import solve_batch
 from .serve import SolverService
 from .solver.core import solve_scaled
@@ -44,7 +49,8 @@ __all__ = [
     "Problem", "Settings", "Info", "Result", "ScaledProblem", "SolverState",
     "solve_batch", "solve_heterogeneous", "make_problem", "solve", "QPDO",
     "solve_sparse", "solve_sparse_batch", "solve_sparse_heterogeneous",
-    "scale_problem", "solve_scaled", "qp_solve", "SolverService",
+    "scale_problem", "solve_scaled", "qp_solve", "sparse_qp_layer",
+    "solve_continuation", "grid1d_prolong", "grid2d_interp", "SolverService",
     "UnsafeSettingsWarning",
     "SOLVED", "UNSOLVED", "MAX_ITER_REACHED", "MAX_TIME_REACHED", "NON_CVX",
     "PRIMAL_INFEASIBLE", "DUAL_INFEASIBLE", "QPDO_INFTY",

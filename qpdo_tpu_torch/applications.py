@@ -2,7 +2,7 @@
 condensed MPC, non-negative least squares, Huber fitting, and an SQP
 method for smooth nonlinear programs.
 
-Port of the dense half of ``qpdo_tpu/applications.py`` (l.36-357).  Each
+Port of ``qpdo_tpu/applications.py``.  Each dense
 constructor returns a ``Problem`` (a batch of one, as ``make_problem``
 builds it; plus, where the QP variables are not the user's variables, the
 place the user's sit in the QP solution) built from the same inputs as the
@@ -12,11 +12,11 @@ tuple (interfaces/mex/qpdo.m:50-160, examples/demo_mex.m), so these are
 front-ends that reduce to that tuple and go through the ordinary
 ``solve`` path (scaling, certificates, warm starting all apply).
 
-Every constructor takes ``dtype`` and ``device`` as ``make_problem``
-does: the dtype defaults to that of the first array argument, and
-``device=None`` means "cuda".  The scipy-sparse constructors
-(``lasso_sparse``, ``huber_sparse``) come with the sparse path
-(ROADMAP.md Queue 1).
+Every dense constructor takes ``dtype`` and ``device`` as
+``make_problem`` does: the dtype defaults to that of the first array
+argument, and ``device=None`` means "cuda".  The sparse constructors
+(``lasso_sparse``, ``huber_sparse``) return scipy.sparse tuples for
+``solve_sparse`` and ``solve_sparse_batch``, which take the device.
 """
 
 from __future__ import annotations
@@ -27,8 +27,9 @@ from .api import make_problem, solve
 from .types import Problem, Settings
 
 __all__ = [
-    "lasso", "svm_dual", "svm_primal_from_dual", "portfolio",
-    "mpc_condensed", "nonneg_ls", "huber_fit", "sqp_minimize",
+    "lasso", "lasso_sparse", "svm_dual", "svm_primal_from_dual",
+    "portfolio", "mpc_condensed", "nonneg_ls", "huber_fit", "huber_sparse",
+    "sqp_minimize",
 ]
 
 _INF = float("inf")
@@ -73,6 +74,63 @@ def lasso(F, b, lam, dtype=None, device=None) -> Problem:
     A = torch.cat([torch.cat([eye, -eye], 1), torch.cat([-eye, -eye], 1)])
     return make_problem(Q, q, A, _full(2 * p, -_INF, F),
                         torch.zeros_like(q), c=0.5 * b @ b, device=F.device)
+
+
+def lasso_sparse(F, b, lam):
+    """Large-scale Lasso for the sparse path: a scipy.sparse
+    ``(Q, q, A, l, u, c)`` tuple for ``solve_sparse`` /
+    ``solve_sparse_batch`` (applications.py:59-89 of the JAX package).
+
+    The residual is lifted so that Q stays diagonal and every matrix
+    inherits F's sparsity (no dense F'F Gram): variables z = (x, t, r) with
+
+        min 0.5 r'r - b'r + lam*1't + 0.5 b'b
+        s.t. F x - r = 0,   x - t <= 0,   -x - t <= 0
+
+    x sits in z[:p]; at the optimum r = F x and t = |x|.
+    """
+    import numpy as np
+    import scipy.sparse as sps
+
+    F = sps.csr_matrix(F)
+    b = np.asarray(b, float)
+    N, p = F.shape
+    Q = sps.diags(np.concatenate([np.zeros(2 * p), np.ones(N)])).tocsr()
+    q = np.concatenate([np.zeros(p), np.full(p, float(lam)), -b])
+    eye_p = sps.eye(p, format="csr")
+    Z_pN = sps.csr_matrix((p, N))
+    A = sps.vstack([
+        sps.hstack([F, sps.csr_matrix((N, p)), -sps.eye(N, format="csr")]),
+        sps.hstack([eye_p, -eye_p, Z_pN]),
+        sps.hstack([-eye_p, -eye_p, Z_pN]),
+    ]).tocsr()
+    l = np.concatenate([np.zeros(N), np.full(2 * p, -np.inf)])
+    u = np.concatenate([np.zeros(N), np.zeros(2 * p)])
+    return Q, q, A, l, u, 0.5 * float(b @ b)
+
+
+def huber_sparse(F, b, delta):
+    """Large-scale Huber regression for the sparse path: the split of
+    ``huber_fit`` with scipy.sparse matrices (diagonal Q, A inheriting F's
+    sparsity; applications.py:92-115 of the JAX package).  Returns
+    ``(Q, q, A, l, u)``; x sits in z[:p]."""
+    import numpy as np
+    import scipy.sparse as sps
+
+    F = sps.csr_matrix(F)
+    b = np.asarray(b, float)
+    N, p = F.shape
+    Q = sps.diags(np.concatenate([np.zeros(p), np.ones(N),
+                                  np.zeros(2 * N)])).tocsr()
+    q = np.concatenate([np.zeros(p + N), np.full(2 * N, float(delta))])
+    eyeN = sps.eye(N, format="csr")
+    A_eq = sps.hstack([F, -eyeN, -eyeN, eyeN])
+    A_s = sps.hstack([sps.csr_matrix((2 * N, p + N)),
+                      sps.eye(2 * N, format="csr")])
+    A = sps.vstack([A_eq, A_s]).tocsr()
+    l = np.concatenate([b, np.zeros(2 * N)])
+    u = np.concatenate([b, np.full(2 * N, np.inf)])
+    return Q, q, A, l, u
 
 
 def svm_dual(X, labels, C, dtype=None, device=None) -> Problem:

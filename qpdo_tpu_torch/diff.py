@@ -1,7 +1,6 @@
 """Differentiable QP solving: implicit differentiation through the KKT map.
 
-Port of the dense half of ``qpdo_tpu/diff.py`` (l.1-150, 269-300).  The
-*solution map* of the QP
+Port of ``qpdo_tpu/diff.py``.  The *solution map* of the QP
 
     minimize    0.5 x' Q x + q' x
     subject to  l <= A x <= u
@@ -55,9 +54,13 @@ vmap of a per-problem function.  Batched data (``Q`` (B, n, n), ``q``
 batched saddle solve per backward or tangent pass; unbatched data (``Q``
 (n, n) and so on) gives unbatched outputs.  One Function carries both
 rules, so ``mode`` only names the rule the caller means to use (JAX needs
-a ``custom_vjp`` and a ``custom_jvp`` apart).  The sparse layer
-(``sparse_qp_layer``, ``qpdo_tpu/diff.py:153-266``) comes with the
-sparse path (ROADMAP.md Queue 1).
+a ``custom_vjp`` and a ``custom_jvp`` apart).
+
+``sparse_qp_layer`` (``qpdo_tpu/diff.py:153-271``) is the large-n layer
+of one problem with a fixed sparsity pattern: its forward pass is the
+sparse solve, its backward pass the same adjoint solved matrix-free by
+the sparse operator's Newton solve, with the Q and A cotangents as value
+vectors on the pattern.
 """
 
 from __future__ import annotations
@@ -154,6 +157,121 @@ class _QPSolve(torch.autograd.Function):
         dAx = zero_m if dA is None else torch.matmul(dA, x[..., None])[..., 0]
         dx, dy = _saddle(ctx, Q, A, act, r1, act * (db - dAx))
         return dx, act * dy
+
+
+class _SparseQPSolve(torch.autograd.Function):
+    """(q_data, a_data, q, l, u) -> (x, y) of one sparse problem on the
+    pattern of a ``sparse_qp_layer``, with the adjoint backward rule."""
+
+    @staticmethod
+    def forward(q_data, a_data, q, l, u, layer):
+        # unrecorded, as _QPSolve.forward: the loop reuses its buffers
+        st = layer.settings
+        op = layer._setup(q_data, a_data, q, l, u, st.scaling, st.ruiz_kkt)
+        res = solve_scaled(op, st)
+        return res.x[0], res.y[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q_data, a_data, q, l, u, layer = inputs
+        ctx.layer = layer
+        ctx.save_for_backward(q_data, a_data, q, l, u, *output)
+
+    @staticmethod
+    def backward(ctx, gx, gy):
+        q_data, a_data, q, l, u, x, y = ctx.saved_tensors
+        layer = ctx.layer
+        st = layer.settings
+        dt, dev = x.dtype, x.device
+        gx = torch.zeros_like(x) if gx is None else gx.to(dt)
+        gy = torch.zeros_like(y) if gy is None else gy.to(dt)
+        # the adjoint Newton solve through the whole sparse machinery
+        # (block-Jacobi and coarse correction, or the exact banded solve
+        # where the pattern allows) on the unscaled data: plain Jacobi CG
+        # stagnates at the adjoint's 1/diff_mu conditioning
+        op0 = layer._setup(q_data, a_data, q, l, u, 0, False)
+        Amv = lambda v: op0.Amv(v[None])[0]
+        Atmv = lambda v: op0.Atmv(v[None])[0]
+        z = Amv(x) + y
+        act_low = z < l
+        act_up = z > u
+        act = (act_low | act_up).to(dt)
+        mu_d = torch.full_like(y, layer.diff_mu)
+        W = act / mu_d
+        st_adj = st.replace(cg_tol=min(st.cg_tol, 1e-10),
+                            cg_max_iter=max(st.cg_max_iter, 2000))
+        rhs = gx + Atmv(W * gy)
+        sig_d = torch.full((1,), layer.diff_sigma, dtype=dt, device=dev)
+        u_adj = op0.newton_solve(act[None], mu_d[None], sig_d, rhs[None],
+                                 st_adj)[0]
+        v = W * (Amv(u_adj) - gy)
+        qi, qj = op0.q_idx[:, 0], op0.q_idx[:, 1]
+        rows, cols = op0.a_idx[:, 0], op0.a_idx[:, 1]
+        dq_data = -u_adj[qi] * x[qj]
+        da_data = -(y[rows] * u_adj[cols] + v[rows] * x[cols])
+        zero = torch.zeros_like(v)
+        return (dq_data, da_data, -u_adj, torch.where(act_low, v, zero),
+                torch.where(act_up, v, zero), None)
+
+
+class sparse_qp_layer:
+    """Differentiable large-n QP layer with a fixed sparsity pattern.
+
+    Built once from pattern carriers (scipy.sparse or dense; only the
+    nonzero patterns are kept), the layer maps the problem data of one
+    QP to its solution:
+
+        layer = sparse_qp_layer(Q0, A0, settings)
+        x, y = layer(q_data, a_data, q, l, u)
+
+    where ``q_data``/``a_data`` are the nonzero values of Q/A in the
+    layer's row-sorted COO order (``layer.q_indices``/``layer.a_indices``,
+    those of ``scipy.sparse.coo_matrix(M.tocsr())``).  All five arguments
+    are differentiable: the backward pass solves the adjoint KKT system
+    matrix-free (``SparseOperator.newton_solve`` at ``cg_tol`` <= 1e-10,
+    ``cg_max_iter`` >= 2000, on the unscaled data), the sparse analogue
+    of ``qp_solve``'s dense adjoint; Q/A cotangents are value vectors on
+    the pattern (the gradient restricted to the pattern, which is the
+    full gradient whenever the pattern is structural).
+
+    ``dtype`` defaults to float64; ``diff_mu`` to ``max(mu_min, 1e-8)``.
+    The data go to ``device``: None is ``q_data``'s device when it is a
+    tensor, else "cuda".  ``x`` (n,) and ``y`` (m,) come back there."""
+
+    def __init__(self, Q, A, settings: Optional[Settings] = None, *,
+                 diff_mu: Optional[float] = None, diff_sigma: float = 0.0,
+                 dtype=None, device=None):
+        from .solver.sparse import _as_triplets, _torch_dtype
+
+        self.settings = Settings() if settings is None else settings
+        if diff_mu is None:
+            diff_mu = max(float(self.settings.mu_min), 1e-8)
+        self.diff_mu = float(diff_mu)
+        self.diff_sigma = float(diff_sigma)
+        self.dtype = _torch_dtype(dtype)
+        self.device = device
+        _, self.q_indices, self.q_shape = _as_triplets(Q, self.dtype)
+        _, self.a_indices, self.a_shape = _as_triplets(A, self.dtype)
+
+    def _setup(self, q_data, a_data, q, l, u, scaling_iters, ruiz_kkt):
+        from .solver.sparse import setup_sparse
+
+        st = self.settings
+        return setup_sparse((q_data, self.q_indices, self.q_shape), q,
+                            (a_data, self.a_indices, self.a_shape), l, u,
+                            0.0, scaling_iters, self.dtype,
+                            precond=st.precond,
+                            precond_block=st.precond_block,
+                            ruiz_kkt=ruiz_kkt, device=q.device)
+
+    def __call__(self, q_data, a_data, q, l, u):
+        device = self.device
+        if device is None:
+            device = (q_data.device if isinstance(q_data, torch.Tensor)
+                      else "cuda")
+        as_t = lambda a: torch.as_tensor(a, device=device).to(self.dtype)
+        return _SparseQPSolve.apply(as_t(q_data), as_t(a_data), as_t(q),
+                                    as_t(l), as_t(u), self)
 
 
 def qp_solve(Q, q, A, l, u, settings: Optional[Settings] = None, *,

@@ -14,7 +14,11 @@ has a batch size, a device and a dtype.  The solver core
 - ``SparseOperator`` (JAX l.684-1483): sparse triplets of Q/A with the
   matrix-free Newton solves of the large-n path: preconditioned CG
   (Jacobi, block-Jacobi, two-level) and, on banded KKT patterns, the
-  exact block-tridiagonal scan factorization.
+  exact block-tridiagonal factorization (the sequential scan or block
+  cyclic reduction).
+- ``BlockAngularOperator`` (JAX l.1484-1627): scenario-structured data
+  whose Newton systems are arrow-shaped, solved by a Schur complement
+  over batched scenario Cholesky factors.
 
 Reduced-precision copies of Q and A (``Qmv(x, dtype=...)`` and friends)
 are cast once per operator and kept, where the JAX package relies on XLA
@@ -27,10 +31,10 @@ import torch
 
 from .ops.batched import all_finite, bwhere, mtv, mv, norm2
 from .ops.cg import cg_fixed, pcg, pcg_refined
-from .ops.linalg import (_cholesky_nan, form_kkt, fused_kkt_route,
-                         kkt_cache_build, kkt_inverse, newton_system_solve,
-                         newton_system_solve_cached, resolve_dtype,
-                         saddle_polish_solve)
+from .ops.linalg import (_cholesky_nan, cholesky_solve, form_kkt,
+                         fused_kkt_route, kkt_cache_build, kkt_inverse,
+                         newton_system_solve, newton_system_solve_cached,
+                         resolve_dtype, saddle_polish_solve)
 from .types import ScaledProblem, Settings, tree_map
 
 
@@ -398,9 +402,11 @@ class DenseOperator:
 # a float32 factor carries (operators.py:40-44 of the JAX package).
 _ESCALATE_MU_FLOOR = 1e-7
 
-# What waits for a later slice (ROADMAP.md Queue 1 item 4b).
-_CR_WAITS = ("banded_algo='cr' (block cyclic reduction) is not ported yet: "
-             "it waits for ROADMAP.md Queue 1 item 4b; use 'scan' or 'auto'")
+# The accuracy-gated scan fallback of cyclic reduction is compiled in,
+# under Settings.robust_gate_auto, only where mu_min can push cond(K) past
+# ~1e6 with a reduced-precision factor (operators.py:36-43 of the JAX
+# package: the CR cancellation class was measured at cond(K) ~ 1e7).
+_CR_FALLBACK_MU_FLOOR = 1e-6
 
 
 def _tri_solve(L, r, lower_trans: bool = False):
@@ -438,17 +444,21 @@ class SparseOperator:
     union).  This replaces the JAX package's stacking and ``vmap`` over
     per-problem operators.
 
-    Every matvec is a scatter (``index_add_``) over the row-sorted
-    triplets: it takes every pattern.  On the CPU it adds in the order of
-    the triplets, as the JAX package's scatter does; on a CUDA device the
-    float64 adds are atomics, so the order of the sums, and the last bits,
-    may change from run to run.
+    A matvec is a scatter (``index_add_``) over the row-sorted triplets,
+    which takes every pattern, or, where the operator carries the ELL
+    maps of its direction (``ellQ``, ``ellA``, ``ellAt``:
+    ``solver/sparse.py:_ell_maps``, built on a CUDA device as the JAX
+    package builds them off the CPU), a gather and a dense row sum
+    (operators.py:777-809).  On the CPU the scatter adds in the order of
+    the triplets, as the JAX package's does; on a CUDA device its float64
+    adds are atomics, whose order, and so the last bits, may change from
+    run to run, while the ELL row sum has a fixed order.
     """
 
     FIELDS = ("q_data", "q_idx", "a_data", "a_idx", "diagQ", "q", "l", "u",
               "c", "D", "Dinv", "E", "Einv", "cost", "cinv", "l_finite",
               "u_finite", "pjA", "pjQ", "pcA", "pcQ", "pc_counts", "bdA",
-              "bdAsub", "bdQ", "bdQsub", "bd_shape")
+              "bdAsub", "bdQ", "bdQsub", "bd_shape", "ellQ", "ellA", "ellAt")
 
     def __init__(self, **fields):
         unknown = set(fields) - set(self.FIELDS)
@@ -498,46 +508,83 @@ class SparseOperator:
         out.index_add_(1, rows, prod)
         return out.to(self.dtype)
 
+    def _ell_vals(self, name, which, dtype: torch.dtype):
+        """data[:, gather] * mask of the ELL map ``which`` in ``dtype``,
+        (B, out, K), gathered once per operator."""
+        key = ("ell", name, which, dtype)
+        if key not in self._casts:
+            g, _, mask = getattr(self, which)
+            self._casts[key] = self._data(name, dtype)[:, g] * mask.to(dtype)
+        return self._casts[key]
+
+    def _ell_mv(self, name, which, x, dtype):
+        """out[:, i] = sum_k data[:, g[i, k]] * x[:, idx[i, k]] * mask[i, k]:
+        a gather and a dense row sum, no scatter."""
+        cd = self.dtype if dtype is None else resolve_dtype(dtype, self.dtype)
+        idx = getattr(self, which)[1]
+        out = (self._ell_vals(name, which, cd) * x.to(cd)[:, idx]).sum(-1)
+        return out.to(self.dtype)
+
     def Qmv(self, x, dtype=None):
+        if self.ellQ is not None:
+            return self._ell_mv("q_data", "ellQ", x, dtype)
         return self._scatter_mv("q_data", self.q_idx[:, 0], self.q_idx[:, 1],
                                 x, self.n, dtype)
 
     def Amv(self, x, dtype=None):
+        if self.ellA is not None:
+            return self._ell_mv("a_data", "ellA", x, dtype)
         return self._scatter_mv("a_data", self.a_idx[:, 0], self.a_idx[:, 1],
                                 x, self.m, dtype)
 
     def Atmv(self, y, dtype=None):
         # A' y re-uses the same triplets with roles swapped
+        if self.ellAt is not None:
+            return self._ell_mv("a_data", "ellAt", y, dtype)
         return self._scatter_mv("a_data", self.a_idx[:, 1], self.a_idx[:, 0],
                                 y, self.n, dtype)
 
-    def _scatter_mv2(self, data, rows, cols, xa, xb, out_dim):
-        """Two right-hand sides in one scatter: (B, k, 2) products."""
+    def _pair_mv(self, name, which, rows, cols, xa, xb, out_dim):
+        """Two right-hand sides in one product, (B, k, 2): the ELL gather
+        where the map exists, else one scatter."""
         X = torch.stack([xa, xb], dim=-1)
-        V = torch.zeros((X.shape[0], out_dim, 2), dtype=self.dtype,
-                        device=X.device)
-        V.index_add_(1, rows, data[:, :, None] * X.index_select(1, cols))
+        if getattr(self, which) is not None:
+            idx = getattr(self, which)[1]
+            vals = self._ell_vals(name, which, self.dtype)
+            V = (vals[..., None] * X[:, idx, :]).sum(-2)
+        else:
+            V = torch.zeros((X.shape[0], out_dim, 2), dtype=self.dtype,
+                            device=X.device)
+            V.index_add_(1, rows, getattr(self, name)[:, :, None]
+                         * X.index_select(1, cols))
         return V[..., 0], V[..., 1]
 
     def Amv2(self, xa, xb):
-        return self._scatter_mv2(self.a_data, self.a_idx[:, 0],
-                                 self.a_idx[:, 1], xa, xb, self.m)
+        return self._pair_mv("a_data", "ellA", self.a_idx[:, 0],
+                             self.a_idx[:, 1], xa, xb, self.m)
 
     def Atmv2(self, ya, yb):
-        return self._scatter_mv2(self.a_data, self.a_idx[:, 1],
-                                 self.a_idx[:, 0], ya, yb, self.n)
+        return self._pair_mv("a_data", "ellAt", self.a_idx[:, 1],
+                             self.a_idx[:, 0], ya, yb, self.n)
 
     def Qmv2(self, xa, xb):
-        return self._scatter_mv2(self.q_data, self.q_idx[:, 0],
-                                 self.q_idx[:, 1], xa, xb, self.n)
+        return self._pair_mv("q_data", "ellQ", self.q_idx[:, 0],
+                             self.q_idx[:, 1], xa, xb, self.n)
 
     def diag_K(self, active, mu, sigma, proximal: bool):
         """diag(K) in O(nnz) without forming K: diag(Q) + sigma +
-        sum_i (active_i/mu_i) A_ij^2 per column j."""
+        sum_i (active_i/mu_i) A_ij^2 per column j; with the ``ellAt`` map
+        a gather over each column's entries (its idx are their rows)."""
         w = active / mu
-        rows, cols = self.a_idx[:, 0], self.a_idx[:, 1]
-        d = torch.zeros_like(self.diagQ)
-        d.index_add_(1, cols, w.index_select(1, rows) * torch.square(self.a_data))
+        if self.ellAt is not None:
+            ridx = self.ellAt[1]
+            vals = self._ell_vals("a_data", "ellAt", self.dtype)
+            d = (w[:, ridx] * torch.square(vals)).sum(-1)
+        else:
+            rows, cols = self.a_idx[:, 0], self.a_idx[:, 1]
+            d = torch.zeros_like(self.diagQ)
+            d.index_add_(1, cols,
+                         w.index_select(1, rows) * torch.square(self.a_data))
         d = d + self.diagQ
         if proximal:
             d = d + sigma[:, None]
@@ -726,27 +773,105 @@ class SparseOperator:
 
         return solve
 
+    @staticmethod
+    def _banded_factor_cr(D, E, max_levels: int = 0):
+        """Block cyclic reduction (operators.py:1113-1206), per problem of
+        the batch: every level eliminates the odd-indexed blocks with one
+        batched Cholesky and batched triangular solves and GEMMs over ~k/2
+        blocks, halving the system, so the depth is ~log2(nb) levels
+        where the scan's is nb blocks.
+
+        ``max_levels`` > 0 stops after that many levels and finishes the
+        coarse remainder with the scan factorization (float32 Schur
+        updates compound across levels; the scan is the stable finish).
+        A pivot block that is not positive definite gives NaN in that
+        problem only.  D is (B, nb, b, b), E (B, >= nb-1, b, b) with
+        E_k = K[k+1, k].  Returns solve(rb: (B, nb, b)) -> (B, nb, b)."""
+        def chs(L, X):
+            return torch.linalg.solve_triangular(
+                L.mT, torch.linalg.solve_triangular(L, X, upper=False),
+                upper=True)
+
+        zblk = torch.zeros_like(D[:, :1])
+        levels = []
+        while D.shape[1] > 1 and (max_levels <= 0
+                                  or len(levels) < max_levels):
+            k = D.shape[1]
+            no, ne = k // 2, k - k // 2
+            # odd blocks j = 2t+1, t = 0..no-1; kept evens i = 2e
+            Lo = _cholesky_nan(D[:, 1::2])
+            Epad = torch.cat([E[:, :k - 1], zblk], dim=1)    # (B, k, b, b)
+            Ejm1 = Epad[:, 0::2][:, :no]        # E_{j-1} for odd j
+            Ej = Epad[:, 1::2][:, :no]          # E_j (zero when j = k-1)
+            Ua = chs(Lo, Ejm1)                  # D_j^-1 E_{j-1}
+            Ub = chs(Lo, Ej.mT)                 # D_j^-1 E_j'
+            # Schur updates of the kept evens: from the left odd
+            # (lands on even t+1) and from the right odd (lands on even t);
+            # when k is even the last odd has no right even, and its
+            # zero-padded E_j makes the dropped tail exactly zero
+            left = Ej @ Ub
+            right = Ejm1.mT @ Ua
+            Dnew = D[:, 0::2].clone()
+            Dnew[:, 1:] -= left[:, :ne - 1]
+            Dnew[:, :no] -= right
+            # the new coupling of kept evens (e, e+1): -E_j D_j^-1 E_{j-1}
+            Enew = -(Ej @ Ua)[:, :ne - 1]
+            levels.append((Lo, Ua, Ub, Ejm1, Ej, k, no, ne))
+            D, E = Dnew, Enew
+        if D.shape[1] == 1:
+            Lfin = _cholesky_nan(D[:, 0])
+
+            def coarse_solve(r):
+                return chs(Lfin, r[:, 0, :, None])[..., 0][:, None]
+        else:
+            coarse_solve = SparseOperator._banded_factor_scan(D, E)
+
+        def solve(rb):
+            rs_odd = []
+            r = rb
+            for Lo, Ua, Ub, Ejm1, Ej, k, no, ne in levels:
+                yo = chs(Lo, r[:, 1::2, :, None])[..., 0]     # (B, no, b)
+                rs_odd.append(yo)
+                rnew = r[:, 0::2].clone()
+                rnew[:, 1:] -= (Ej @ yo[..., None])[..., 0][:, :ne - 1]
+                rnew[:, :no] -= (Ejm1.mT @ yo[..., None])[..., 0]
+                r = rnew
+            x = coarse_solve(r)
+            for (Lo, Ua, Ub, Ejm1, Ej, k, no, ne), yo in zip(
+                    reversed(levels), reversed(rs_odd)):
+                xl = x[:, :no]                                 # x_{j-1}
+                xr = torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])],
+                               dim=1)[:, :no]                  # x_{j+1}
+                xo = (yo - (Ua @ xl[..., None])[..., 0]
+                      - (Ub @ xr[..., None])[..., 0])
+                full = x.new_empty((x.shape[0], k, x.shape[2]))
+                full[:, 0::2] = x
+                full[:, 1::2] = xo
+                x = full
+            return x
+
+        return solve
+
     def _banded_solve(self, w, sigma, rhs, settings: Settings):
         """Exact block-tridiagonal solve of K dx = rhs
         (operators.py:1208-1393), the banded-pattern replacement of the
         reference's sparse LDL' (cholmod_interface.c:8-30, 98-102): the
-        scan factorization in the KKT dtype, refined on the true system
+        factorization in the KKT dtype (``banded_algo`` "scan", the
+        sequential block Cholesky, or "cr", block cyclic reduction;
+        "auto" is CR on a CUDA tensor and the scan on a CPU tensor, as
+        the JAX package picks CR off the CPU), refined on the true system
         by state-dtype PCG preconditioned by the factor
         (``banded_pcg_refine`` > 0, at most that many iterations) or by
         monotone Richardson sweeps (0: ``refine_steps``, keeping the
-        better iterate by true residual), then, where the refined
-        residual of a problem stays above ``banded_escalate_rtol`` with a
-        reduced KKT dtype, a state-dtype re-factorization with one
-        correction sweep.
-
-        ``banded_algo`` "auto" is the scan on every device (the JAX
-        package picks cyclic reduction off the CPU); "cr" raises
-        NotImplementedError until ROADMAP.md Queue 1 item 4b.  The JAX
-        package's ``lax.cond`` around the escalation becomes, for a batch,
-        a per-problem select (as its ``vmap`` lowers it), computed only
-        when some problem fails the gate."""
-        if settings.banded_algo == "cr":
-            raise NotImplementedError(_CR_WAITS)
+        better iterate by true residual).  Then two gates, each per
+        problem: a CR solve whose refined residual stays above
+        ``banded_cr_fallback_rtol`` is re-solved with the scan factor,
+        and, with a reduced KKT dtype, a solve whose residual stays above
+        ``banded_escalate_rtol`` is re-solved with a state-dtype scan
+        factor and one correction sweep.  The JAX package's ``lax.cond``
+        around each becomes, for a batch, a per-problem select (as its
+        ``vmap`` lowers it), computed only when some problem fails the
+        gate.  NaN residuals fail both gates."""
         dt = self.dtype
         nb, b = self.bd_shape
         n = self.n
@@ -755,6 +880,9 @@ class SparseOperator:
         kdt = resolve_dtype(settings.kkt_dtype, dt)
         D, E, s = self._assemble_banded(w, sigma, settings)
         Kmv = self._Kmv(w, sigma, settings.proximal)
+        algo = settings.banded_algo
+        if algo == "auto":
+            algo = "scan" if self.device.type == "cpu" else "cr"
 
         def solver(factor, s_blocks, in_dtype):
             s_flat = s_blocks.reshape(Bn, nb * b)[:, :n]
@@ -768,14 +896,16 @@ class SparseOperator:
                 return z[:, :n] * s_flat
             return solve
 
-        solve = solver(self._banded_factor_scan(D, E), s, kdt)
         rhs_n = torch.clamp(norm2(rhs), min=1e-30)
-        pcg_iters = int(settings.banded_pcg_refine)
-        if pcg_iters > 0:
-            tol = 1e-9 if dt == torch.float64 else 1e-5
-            dx, _, rel = pcg(Kmv, rhs, solve, tol, pcg_iters)
-            rn = rel * rhs_n
-        else:
+
+        def run(factor):
+            """Solve and refine with one factor: (dx, ||rhs - K dx||)."""
+            solve = solver(factor, s, kdt)
+            pcg_iters = int(settings.banded_pcg_refine)
+            if pcg_iters > 0:
+                tol = 1e-9 if dt == torch.float64 else 1e-5
+                dx, _, rel = pcg(Kmv, rhs, solve, tol, pcg_iters)
+                return dx, rel * rhs_n
             dx = solve(rhs)
             r = rhs - Kmv(dx)
             rn = norm2(r)
@@ -787,9 +917,33 @@ class SparseOperator:
                 dx = bwhere(better, dx_new, dx)
                 r = bwhere(better, r_new, r)
                 rn = torch.where(better, rn_new, rn)
+            return dx, rn
+
+        # Settings.robust_gate_auto: each fallback exists only where its
+        # failure regime is reachable from the static settings
+        # (operators.py:1319-1336).  This mirrors a fault of the
+        # reference (ADVICE.md, round 5; ROADMAP.md Queue 3): the gate
+        # reads mu_min alone, while cond(K) also depends on the data, so
+        # an ill-scaled problem at mu_min >= 1e-6 with a float32 factor
+        # keeps a NaN CR direction instead of falling back to the scan.
+        auto = settings.robust_gate_auto
+        reduced_factor = torch.finfo(kdt).eps > 1e-10
+        if algo == "cr":
+            dx, rn = run(self._banded_factor_cr(D, E,
+                                                settings.banded_cr_levels))
+            rtol = settings.banded_cr_fallback_rtol
+            if rtol > 0 and (not auto or (
+                    reduced_factor
+                    and settings.mu_min < _CR_FALLBACK_MU_FLOOR)):
+                ok = rn <= rtol * rhs_n              # False on NaN
+                if not bool(ok.all()):
+                    dx_scan, rn_scan = run(self._banded_factor_scan(D, E))
+                    dx = bwhere(ok, dx, dx_scan)
+                    rn = torch.where(ok, rn, rn_scan)
+        else:
+            dx, rn = run(self._banded_factor_scan(D, E))
 
         esc_rtol = settings.banded_escalate_rtol
-        auto = settings.robust_gate_auto
         if esc_rtol > 0 and kdt != dt and (
                 not auto or settings.mu_min < _ESCALATE_MU_FLOOR):
             esc_ok = rn <= esc_rtol * rhs_n          # False on NaN
@@ -863,4 +1017,163 @@ class SparseOperator:
                               and a.dtype == from_dt else a)
             self._casts[key] = self._replace(
                 **{name: conv(getattr(self, name)) for name in self.FIELDS})
+        return self._casts[key]
+
+
+class BlockAngularOperator:
+    """Scenario-structured (block-angular) QPs of a batch, with arrow-KKT
+    Newton solves (operators.py:1484-1627).
+
+    Problems  min 0.5 x0'Q0 x0 + sum_s 0.5 xs'Qs xs + q0'x0 + sum_s qs'xs
+              s.t.  l_s <= T_s x0 + W_s x_s <= u_s
+    (two-stage stochastic programs, scenario MPC).  The semismooth-Newton
+    KKT matrix is exactly arrow-structured, so every Newton solve is a
+    Schur complement over the scenarios' Cholesky factors
+    (``ops/schur.py``).
+
+    The JAX package carries the primal side as an (x0, xs) pytree.  The
+    port's core works on (B, n) tensors, so here every vector is flat: a
+    primal vector is (B, n0 + S*ns), x0 then the scenarios' xs in order,
+    and a dual vector (B, S*ms), scenario by scenario; each matvec and the
+    Newton solve view them as (x0, xs) and (S, ms).  The inf-norms and
+    inner products of the core over a flat vector are the JAX package's
+    ``tnorm_inf``/``tdot`` over the tuple (operators.py:61-80), summed in
+    one pass instead of leaf by leaf.  The matrices are batch-first: Q0
+    (B, n0, n0), Qs (B, S, ns, ns), T (B, S, ms, n0), W (B, S, ms, ns).
+    Build it with ``solver.structured.scale_block_angular``.  There is no
+    ``Amv_mixed`` and no ``kkt_cache_init``, so the core's operator gates
+    skip the mixed phase and the carried cache, as the JAX core's
+    ``hasattr`` gates do.
+    """
+
+    FIELDS = ("Q0", "Qs", "T", "W", "q", "l", "u", "c", "D", "Dinv", "E",
+              "Einv", "cost", "cinv", "l_finite", "u_finite")
+
+    def __init__(self, **fields):
+        unknown = set(fields) - set(self.FIELDS)
+        if unknown:
+            raise TypeError(f"BlockAngularOperator: unknown fields "
+                            f"{sorted(unknown)}")
+        for name in self.FIELDS:
+            setattr(self, name, fields[name])
+        self._casts = {}
+
+    dtype = property(lambda self: self.Q0.dtype)
+    device = property(lambda self: self.Q0.device)
+    batch = property(lambda self: self.Q0.shape[0])
+    shapes = property(lambda self: (self.T.shape[1], self.T.shape[2],
+                                    self.T.shape[3], self.W.shape[3]))
+
+    def zeros_primal(self):
+        return torch.zeros_like(self.q)
+
+    def zeros_dual(self):
+        return torch.zeros_like(self.l)
+
+    def split_primal(self, x):
+        """A flat (B, n, ...) primal vector as (x0 (B, n0, ...), xs
+        (B, S, ns, ...))."""
+        S, _, n0, ns = self.shapes
+        return x[:, :n0], x[:, n0:].reshape(x.shape[0], S, ns, *x.shape[2:])
+
+    def _mats(self, dtype):
+        """(Q0, Qs, T, W) in ``dtype`` (the state dtype when None), cast
+        once per operator."""
+        k = self.dtype if dtype is None else resolve_dtype(dtype, self.dtype)
+        if k == self.dtype:
+            return self.Q0, self.Qs, self.T, self.W
+        if k not in self._casts:
+            self._casts[k] = tuple(a.to(k) for a in (self.Q0, self.Qs,
+                                                     self.T, self.W))
+        return self._casts[k]
+
+    def Qmv(self, x, dtype=None):
+        Q0, Qs, _, _ = self._mats(dtype)
+        x0, xs = self.split_primal(x.to(Q0.dtype))
+        r0 = mv(Q0, x0)
+        rs = (Qs @ xs[..., None])[..., 0]
+        return torch.cat([r0, rs.flatten(1)], dim=1).to(self.dtype)
+
+    def Amv(self, x, dtype=None):
+        _, _, T, W = self._mats(dtype)
+        x0, xs = self.split_primal(x.to(T.dtype))
+        r = (T @ x0[:, None, :, None] + W @ xs[..., None])[..., 0]
+        return r.flatten(1).to(self.dtype)
+
+    def Atmv(self, y, dtype=None):
+        _, _, T, W = self._mats(dtype)
+        S, ms, _, _ = self.shapes
+        yk = y.to(T.dtype).reshape(y.shape[0], S, ms, 1)
+        r0 = (T.mT @ yk)[..., 0].sum(dim=1)
+        rs = (W.mT @ yk)[..., 0]
+        return torch.cat([r0, rs.flatten(1)], dim=1).to(self.dtype)
+
+    # -- paired matvecs: two right-hand sides in one batched product --
+    def Amv2(self, xa, xb):
+        x0, xs = self.split_primal(torch.stack([xa, xb], dim=-1))
+        R = self.T @ x0[:, None] + self.W @ xs          # (B, S, ms, 2)
+        R = R.flatten(1, 2)
+        return R[..., 0], R[..., 1]
+
+    def Atmv2(self, ya, yb):
+        S, ms, _, _ = self.shapes
+        Y = torch.stack([ya, yb], dim=-1).reshape(ya.shape[0], S, ms, 2)
+        R0 = (self.T.mT @ Y).sum(dim=1)                 # (B, n0, 2)
+        Rs = (self.W.mT @ Y).flatten(1, 2)              # (B, S*ns, 2)
+        R = torch.cat([R0, Rs], dim=1)
+        return R[..., 0], R[..., 1]
+
+    def Qmv2(self, xa, xb):
+        x0, xs = self.split_primal(torch.stack([xa, xb], dim=-1))
+        R = torch.cat([self.Q0 @ x0, (self.Qs @ xs).flatten(1, 2)], dim=1)
+        return R[..., 0], R[..., 1]
+
+    def newton_exact(self, settings: Settings) -> bool:
+        """The Schur solve is a direct factorization: exact directions
+        (the JAX core's default for operators without ``newton_exact``)."""
+        return True
+
+    def newton_solve(self, active, mu, sigma, rhs, settings: Settings,
+                     dx_prev=None, tol_hint=None):
+        """The arrow-KKT Schur-complement solve of K dx = rhs: the scenario
+        blocks K_ss = Qs + W' diag(w) W (+ sigma I) and couplings
+        B_s = W' diag(w) T factored and applied in one batched Cholesky
+        solve against [B_s | r_s], the reduction over the scenarios, the
+        n0 x n0 coupled solve, back-substitution, each Cholesky solve with
+        ``refine_steps`` sweeps; a non-finite direction becomes zero per
+        problem, as on the dense path."""
+        from .ops.schur import local_contribution
+
+        S, ms, n0, ns = self.shapes
+        Bn, dt = self.batch, self.dtype
+        refine = settings.refine_steps
+        r0, rs = self.split_primal(rhs)
+        w = (active / mu).reshape(Bn, S, ms, 1)
+        wT, wW = w * self.T, w * self.W
+        K00 = self.Q0 + (self.T.mT @ wT).sum(dim=1)
+        Kss = self.Qs + self.W.mT @ wW
+        Bs = self.W.mT @ wT                             # (B, S, ns, n0)
+        if settings.proximal:
+            K00 = K00 + sigma[:, None, None] * torch.eye(
+                n0, dtype=dt, device=self.device)
+            Kss = Kss + sigma[:, None, None, None] * torch.eye(
+                ns, dtype=dt, device=self.device)
+        SB, Sr, KinvB, Kinvr = local_contribution(Kss, Bs, rs, refine)
+        S0 = K00 - SB.sum(dim=1)
+        rhs0 = r0 - Sr.sum(dim=1)
+        dx0 = cholesky_solve(S0, rhs0, refine)
+        dxs = Kinvr - (KinvB @ dx0[:, None, :, None])[..., 0]
+        dx = torch.cat([dx0, dxs.flatten(1)], dim=1)
+        return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
+
+    def cast(self, dtype) -> "BlockAngularOperator":
+        """Every float leaf in ``dtype`` (kept, so that the hybrid warmup
+        casts once per operator)."""
+        if dtype == self.dtype:
+            return self
+        key = ("op", dtype)
+        if key not in self._casts:
+            self._casts[key] = BlockAngularOperator(
+                **{name: getattr(self, name).to(dtype)
+                   for name in self.FIELDS})
         return self._casts[key]

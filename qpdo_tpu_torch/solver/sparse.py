@@ -12,11 +12,11 @@ c = 1/max(1, ||D q||_inf), bounds scaled by E.
 The operator is batch-first: ``setup_sparse`` builds a batch of one, and
 ``setup_sparse_batch`` a batch of problems that share one sparsity
 pattern (float leaves (B, nnz), one shared copy of every index map).  The
-index maps (block-Jacobi, coarse-grid, banded) are built on the host with
-numpy from the pattern, as the JAX package builds them, and moved to the
-operator's device once.  The JAX package's ELL matvec maps and their
-backend switch (``_ell_enabled``, ``_ell_maps``) are not ported: the
-port's matvecs are scatters on every device.
+index maps (block-Jacobi, coarse-grid, banded, ELL) are built on the host
+with numpy from the pattern, as the JAX package builds them, and moved to
+the operator's device once.  The ELL matvec maps are built where the
+operator's device is not the CPU, the JAX package's ``backend != "cpu"``
+rule; its ``QPDO_ELL`` override is not ported.
 """
 
 from __future__ import annotations
@@ -201,6 +201,40 @@ def _coarse_indices(a_indices, q_indices, n, block: int,
     return pcA, pcQ, counts
 
 
+def _ell_maps(keys_group, keys_other, out_dim: int,
+              cap_width: int = 128, pad_factor: float = 8.0):
+    """Padded-row (ELL) gather maps for one matvec direction
+    (solver/sparse.py:228-280 of the JAX package): the product becomes
+
+        out[i] = sum_k data[gather[i, k]] * x[idx[i, k]] * mask[i, k]
+
+    with every row padded to the largest row degree K, a gather and a
+    dense row sum in place of a scatter.  Returns (gather (out, K) int64,
+    idx (out, K) int64, mask (out, K) int8), or None when the pattern is
+    too irregular (K > ``cap_width``, or the padding exceeds
+    ``pad_factor`` x nnz): the scatter takes that direction then."""
+    g = np.asarray(keys_group, np.int64)
+    nse = len(g)
+    if nse == 0:
+        return None
+    counts = np.bincount(g, minlength=out_dim)
+    K = max(int(counts.max()), 1)
+    if K > cap_width or out_dim * K > pad_factor * nse + out_dim:
+        return None
+    order = np.argsort(g, kind="stable")
+    gs = g[order]
+    starts = np.zeros(out_dim + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    pos = np.arange(nse) - starts[gs]
+    gather = np.zeros((out_dim, K), np.int64)
+    idx = np.zeros((out_dim, K), np.int64)
+    mask = np.zeros((out_dim, K), np.int8)
+    gather[gs, pos] = order
+    idx[gs, pos] = np.asarray(keys_other, np.int64)[order]
+    mask[gs, pos] = 1
+    return gather, idx, mask
+
+
 def _banded_indices(a_indices, q_indices, n, max_bw: int = 128,
                     min_block: int = 8, pair_cap_factor: float = 40.0):
     """Block-tridiagonal scatter maps for the banded direct Newton solve
@@ -259,10 +293,13 @@ def _banded_indices(a_indices, q_indices, n, max_bw: int = 128,
 
 
 def _on(maps, device):
-    """A tuple of int arrays as int64 tensors on ``device`` (None stays)."""
+    """A tuple of int arrays as tensors on ``device``, int64 except the
+    int8 masks of the ELL maps (None stays)."""
     if maps is None:
         return None
-    return tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
+    return tuple(torch.as_tensor(a, device=device,
+                                 dtype=torch.int8 if a.dtype == np.int8
+                                 else torch.int64)
                  for a in maps)
 
 
@@ -377,6 +414,14 @@ def setup_sparse_batch(q_data, q_idx, a_data, a_idx, q, l, u, c, m: int,
         if pjA is not None:
             pcA, pcQ, pc_counts = _coarse_indices(a_idx, q_idx, n,
                                                   precond_block)
+    # the ELL gather maps replace the scatters off the CPU
+    ellQ = ellA = ellAt = None
+    if device.type != "cpu":
+        rows_np, cols_np = np.asarray(a_idx).T
+        qi_np, qj_np = np.asarray(q_idx).T
+        ellQ = _ell_maps(qi_np, qj_np, n)
+        ellA = _ell_maps(rows_np, cols_np, m)
+        ellAt = _ell_maps(cols_np, rows_np, n)
     one = torch.ones((), dtype=dt, device=device)
     return SparseOperator(
         q_data=q_data_s, q_idx=qi_t, a_data=a_data_s, a_idx=ai_t,
@@ -389,4 +434,6 @@ def setup_sparse_batch(q_data, q_idx, a_data, a_idx, q, l, u, c, m: int,
                    torch.as_tensor(pc_counts, dtype=torch.float64,
                                    device=device)),
         bdA=_on(bd[0], device), bdAsub=_on(bd[1], device),
-        bdQ=_on(bd[2], device), bdQsub=_on(bd[3], device), bd_shape=bd[4])
+        bdQ=_on(bd[2], device), bdQsub=_on(bd[3], device), bd_shape=bd[4],
+        ellQ=_on(ellQ, device), ellA=_on(ellA, device),
+        ellAt=_on(ellAt, device))

@@ -71,9 +71,9 @@ class Problem(NamedTuple):
 class Settings:
     """Solver settings: the fields and defaults of ``qpdo_tpu.types.Settings``.
 
-    Only the settings of the ported slices (the dense solve) are
-    read; the sparse, structured, banded and driver fields are kept for
-    parity of the settings object and ignored."""
+    Every field is read where the JAX package reads it, except
+    ``crash_recovery`` (a workaround for the TPU worker's crashes, not
+    ported)."""
 
     max_time: float = _c.MAX_TIME
     max_iter: int = _c.MAX_ITER

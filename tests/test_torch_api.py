@@ -20,6 +20,7 @@ import qpdo_tpu as qt
 
 import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import convert
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _qp(n=30, m=45, seed=0):

@@ -20,6 +20,7 @@ from qpdo_tpu import applications as japps
 
 import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import applications as apps
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EPS = np.finfo(np.float64).eps
 

@@ -1,16 +1,28 @@
 """The PyTorch port's applications (``qpdo_tpu_torch.applications``)
 solved on the CPU in float64 and checked against independent oracles
 (scipy.optimize, a Riccati recursion, strong duality, the problem's own
-optimality conditions), never against the solver itself: the dense
-cases of tests/test_applications.py, with their tolerances.  The SQP
-method takes torch callables (``torch.func`` gives its derivatives).
+optimality conditions), never against the solver itself: the cases of
+tests/test_applications.py, with their tolerances.  The SQP method takes
+torch callables (``torch.func`` gives its derivatives).  The sparse
+constructors (``lasso_sparse``, ``huber_sparse``) give the JAX package's
+scipy.sparse tuples entry for entry, solve through ``solve_sparse`` in
+JAX's status and iterations with x within 1e-8 of its x relative to
+max(1, max|x|) (torch_parity.rel_err; a CG-route iterate moves with
+rounding: 1.0e-8 absolute found on the Huber problem), meet the
+subgradient or BFGS oracle, and reproduce the dense constructors'
+solutions at the JAX tests' 1e-5.
 """
 
 import numpy as np
+import scipy.sparse as sps
 import torch
+
+import qpdo_tpu as qt
+from qpdo_tpu import applications as japps
 
 import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import applications as apps
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 S = pt.Settings(verbose=False)
 
@@ -186,3 +198,67 @@ def test_sqp_minimize_classics():
     x, _ = apps.sqp_minimize(f3, c3, [0.25] * 4, lo, hi, device="cpu")
     ref = np.exp(-np.arange(4.0))
     np.testing.assert_allclose(x.numpy(), ref / ref.sum(), atol=1e-4)
+
+
+def _sparse_F(N, p, density, seed):
+    rng = np.random.default_rng(seed)
+    F = sps.random(N, p, density=density, random_state=seed, format="csr")
+    F.data[:] = rng.standard_normal(F.nnz)
+    return F, rng
+
+
+def _same_tuple(got, ref):
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        if sps.issparse(a):
+            assert (a != b).nnz == 0 and a.shape == b.shape
+        else:
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _sparse_solve_matches_jax(data):
+    jr = qt.solve_sparse(*data)
+    tr = pt.solve_sparse(*data, settings=S, device="cpu")
+    assert tr.info.status == ["solved"]
+    assert int(jr.info.status_val) == qt.SOLVED
+    assert int(tr.info.iterations[0]) == int(jr.info.iterations)
+    x, ref = tr.x.numpy()[0], np.asarray(jr.x)
+    np.testing.assert_allclose(x, ref, rtol=0,
+                               atol=1e-8 * max(1.0, np.abs(ref).max()))
+    return x
+
+
+def test_lasso_sparse_matches_jax_and_the_dense_lasso():
+    F, rng = _sparse_F(50, 20, 0.3, 8)
+    b = rng.standard_normal(50)
+    data = apps.lasso_sparse(F, b, 1.0)
+    _same_tuple(data, japps.lasso_sparse(F, b, 1.0))
+    x = _sparse_solve_matches_jax(data)
+    Fd = F.toarray()
+    _lasso_optimal(Fd, b, 1.0, x[:20])
+    dense = _solve(apps.lasso(Fd, b, 1.0, device="cpu")).x.numpy()[0]
+    np.testing.assert_allclose(x[:20], dense[:20], atol=1e-5)
+    # lifted consistency: r = F x at the optimum
+    np.testing.assert_allclose(x[40:], F @ x[:20], atol=1e-6)
+
+
+def test_huber_sparse_matches_jax_and_the_dense_huber():
+    from scipy.optimize import minimize
+
+    F, rng = _sparse_F(40, 10, 0.4, 9)
+    b = rng.standard_normal(40)
+    b[::6] += 3.0
+    data = apps.huber_sparse(F, b, 0.4)
+    _same_tuple(data, japps.huber_sparse(F, b, 0.4))
+    x = _sparse_solve_matches_jax(data)[:10]
+    Fd = F.toarray()
+    dense = _solve(apps.huber_fit(Fd, b, 0.4, device="cpu")).x.numpy()[0]
+    np.testing.assert_allclose(x, dense[:10], atol=1e-5)
+
+    def huber_obj(v):
+        r = np.abs(Fd @ v - b)
+        return np.sum(np.where(r <= 0.4, 0.5 * r * r, 0.4 * (r - 0.2)))
+
+    ref = minimize(huber_obj, np.zeros(10), method="BFGS",
+                   options={"gtol": 1e-12})
+    np.testing.assert_allclose(huber_obj(x), ref.fun, rtol=1e-8, atol=1e-8)

@@ -30,6 +30,7 @@ import qpdo_tpu_torch.__main__ as tcli
 
 from test_maros_fixtures import HS35, HS51
 from test_qps import HS21_WITH_CONST
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EXACT = ("name", "n", "m", "path", "status", "status_val", "iterations")
 

@@ -39,6 +39,7 @@ from qpdo_tpu_torch.ops import cg as tcg
 from torch_parity import (assert_same, family, oracle, rel_err,
                           scaled_pair, solve_both, stacked)
 from utils import random_qp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

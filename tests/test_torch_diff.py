@@ -24,6 +24,7 @@ import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import convert
 
 from test_diff import H, SETTINGS, fd_grad, make_qp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TSETTINGS = convert.settings(SETTINGS)
 

@@ -28,6 +28,7 @@ from qpdo_tpu_torch.solver import driver
 from qpdo_tpu_torch.utils import printing as tprinting
 
 from utils import random_qp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _QP = random_qp(30, 45, seed=3)
 

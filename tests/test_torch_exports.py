@@ -16,14 +16,11 @@ import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import kernels
 from qpdo_tpu_torch.ops.linalg import fused_kkt_route
 from qpdo_tpu_torch.validate import validate_fused_kkt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-# The names of ``qpdo_tpu.__all__`` still to be ported, each waiting for
-# its item of ROADMAP.md Queue 1: item 4b brings the sparse layer
-# sparse_qp_layer, and the continuation solver with its grid transfers
-# (solve_continuation, grid1d_prolong, grid2d_interp), whose levels run
-# through solve_sparse.
-WAITING = {"sparse_qp_layer", "solve_continuation", "grid1d_prolong",
-           "grid2d_interp"}
+# The names of ``qpdo_tpu.__all__`` still to be ported: none, since the
+# sparse layer and the continuation solver (ROADMAP.md Queue 1 item 4b).
+WAITING = set()
 
 
 def test_every_name_of_the_jax_package_is_exported():

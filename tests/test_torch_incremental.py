@@ -31,6 +31,7 @@ from qpdo_tpu_torch.solver import core as tcore
 
 from torch_parity import (assert_same, assert_states_close, family,
                           jax_states, rel_err, scaled_pair, solve_both)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

@@ -27,6 +27,7 @@ import torch
 from qpdo_tpu_torch import kernels
 from qpdo_tpu_torch.ops import fused_formation as ff
 from qpdo_tpu_torch.ops import fused_kkt as fk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STUB = Path(__file__).resolve().parent / "torch_cuda_stub"
 # the source that holds each kernel's entry points

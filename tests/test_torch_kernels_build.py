@@ -10,6 +10,7 @@ import torch
 
 from qpdo_tpu_torch import kernels
 from qpdo_tpu_torch.ops import fused_kkt as tkkt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_wrappers_check_their_arguments():

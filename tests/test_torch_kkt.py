@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from qpdo_tpu.ops import pallas_kkt as jkkt
 
 from qpdo_tpu_torch.ops import fused_kkt as tkkt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

@@ -19,6 +19,7 @@ from qpdo_tpu.ops import linalg as jlinalg
 
 from qpdo_tpu_torch.ops import cg as tcg
 from qpdo_tpu_torch.ops import linalg as tlinalg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _t(a):

@@ -35,6 +35,7 @@ from qpdo_tpu_torch.ops import linesearch as tls
 from qpdo_tpu_torch.ops.fused_formation import fused_formation
 from qpdo_tpu_torch.ops.fused_residuals import fused_residuals, kernel_outputs
 from qpdo_tpu_torch.solver.scaling import scale_problem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "float64": (np.float64, torch.float64)}

@@ -21,6 +21,7 @@ import qpdo_tpu_torch as pt
 from qpdo_tpu_torch.utils import padding as tpad
 
 from utils import kkt_residuals, random_qp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _pair(n, m, seed):

@@ -33,6 +33,7 @@ from qpdo_tpu_torch.native import loader
 
 from test_maros_fixtures import HS35, HS51
 from test_qps import HS21, HS21_WITH_CONST, TAME
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _generated(seed=0, n=40, m=25):

@@ -20,6 +20,7 @@ import torch
 from qpdo_tpu_torch import kernels
 from qpdo_tpu_torch.ops import fused_residuals as fr
 from test_torch_kernel_emulation import build
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DTYPES = (torch.float32, torch.float64)
 _BITS = {torch.float32: torch.int32, torch.float64: torch.int64}

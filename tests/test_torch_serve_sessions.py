@@ -15,6 +15,7 @@ import qpdo_tpu_torch as pt
 from qpdo_tpu_torch.serve import SolverService
 
 from utils import kkt_residuals, random_qp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _problem(Q, q, A, l, u):

@@ -36,6 +36,7 @@ import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import convert
 from qpdo_tpu_torch.ops import fused_kkt
 from qpdo_tpu_torch.solver import core as tcore
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _family(B, n, m, seed):

@@ -14,8 +14,10 @@ float64.
 * Whole banded solves (defaults, Richardson, a warm start, a primal
   infeasible problem with its certificate): the JAX package's status and
   iteration count, x and y (or the certificate) within 1e-8.
-* ``banded_algo="cr"`` raises NotImplementedError, and a sparse solve
-  without ``device=`` runs on the card or raises.
+* ``banded_algo="cr"`` (block cyclic reduction) solves as the scan does
+  (status, iterations, x within 1e-8), ``"auto"`` is the scan on a CPU
+  tensor, and a sparse solve without ``device=`` runs on the card or
+  raises.
 """
 
 import numpy as np
@@ -32,6 +34,7 @@ from qpdo_tpu.solver import sparse as jsparse
 import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import convert
 from qpdo_tpu_torch.solver import sparse as tsparse
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _liswet(n, seed=0):
@@ -167,15 +170,17 @@ def test_primal_infeasible_banded_problem_and_its_certificate():
 
 def test_cyclic_reduction_waits_and_the_card_is_the_default():
     data = _liswet(40)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        pt.solve_sparse(*data, settings=pt.Settings(banded_algo="cr"),
-                        device="cpu")
-    # "auto" is the scan on every device, as "scan" is
+    cr = pt.solve_sparse(*data, settings=pt.Settings(banded_algo="cr"),
+                         device="cpu")
+    # "auto" is the scan on a CPU tensor, as "scan" is
     a = pt.solve_sparse(*data, settings=pt.Settings(banded_algo="auto"),
                         device="cpu")
     b = pt.solve_sparse(*data, settings=pt.Settings(banded_algo="scan"),
                         device="cpu")
     assert torch.equal(a.x, b.x)
+    assert cr.info.status == b.info.status == ["solved"]
+    assert int(cr.info.iterations[0]) == int(b.info.iterations[0])
+    np.testing.assert_allclose(cr.x.numpy(), b.x.numpy(), rtol=0, atol=1e-8)
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
             pt.solve_sparse(*data)

@@ -25,6 +25,7 @@ import scipy.sparse as sps
 import qpdo_tpu as qt
 
 import qpdo_tpu_torch as pt
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _fleet(B, n=36, m=28, seed=0, same=True):

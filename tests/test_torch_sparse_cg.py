@@ -33,6 +33,7 @@ from qpdo_tpu_torch import convert
 from qpdo_tpu_torch.solver import sparse as tsparse
 
 from utils import kkt_residuals, random_qp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _liswet(n, seed=0):

@@ -27,6 +27,7 @@ from qpdo_tpu.solver import sparse as jsparse
 
 from qpdo_tpu_torch.ops import linalg as tlinalg
 from qpdo_tpu_torch.solver import sparse as tsparse
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _liswet(n, seed=0):

@@ -38,6 +38,7 @@ from qpdo_tpu_torch.solver.sparse import setup_sparse
 from qpdo_tpu_torch.utils import checkpoint, debug, profiling
 
 from torch_parity import family, torch_problem
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -13,6 +13,7 @@ from qpdo_tpu import validate as jvalidate
 
 import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import validate as tvalidate
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _qp(n=30, m=45, seed=0):

@@ -19,6 +19,7 @@ from qpdo_tpu.solver.scaling import scale_problem as j_scale
 import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import convert
 from qpdo_tpu_torch.solver import core as tcore
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _batch(B, n, m, seed):
