@@ -168,12 +168,46 @@ Phases (any failure raises and exits non-zero):
    through the scatter (times, and their difference), and 14c's solve
    again, its CG counts against 14c's; then the kernels against their
    plain versions at every shape (a)-(d) gave them.
+16. The distributed paths, in child processes of this script
+   (``--phase16-child``, started with the environment ``torchrun`` sets
+   and joined by ``multihost.initialize()``; the parent joins no group
+   and builds the kernels first): 2 ranks over gloo on the one card
+   (NCCL refuses two ranks on one GPU) and 1 rank over NCCL, every child
+   under a process-group and a process time limit; a failed child fails
+   the phase.  (a) the bench family of phase 4 through ``solve_batch``
+   of ``shard_problems`` with compaction (phase 4's path, split) and
+   through ``solve_batch_sharded``, and each rank's own problems (seeds
+   100+rank) through ``distribute_batch`` + ``solve_batch``: every
+   problem SOLVED within the oracle, phase 4's statuses (the iteration
+   gap to phase 4 printed), and each rank's block of the uncompacted
+   solve bit for bit the unsharded solve of the same problems in a batch
+   of that size (the card's batched float32 GEMMs round by batch size);
+   (b, gloo) one
+   QP of n=200, m=100,000 (and 100,001: a padded row) through
+   ``solve_row_sharded``: SOLVED within the oracle on the whole A, the
+   padded tail of y exactly 0, x bit-identical on both ranks, and at
+   m=100,000 the unsharded solve's iterations with x within
+   ``ROW_X_BAND`` of max|x|; (c) ``arrow_solve_sharded`` at phase 15c's
+   shape against ``arrow_solve`` within ``ARROW_RTOL``; (d) phase 15c's
+   problem with its scenarios split: the unsharded iterations, x within
+   ``STRUCTURED_X_BAND``; (e) phase 14e's fleet at n=1,000, cut to 16
+   problems, over the mesh: SOLVED within the oracle; (f) 64 requests
+   through ``SolverService(mesh=)`` submitted on rank 0: SOLVED within the
+   oracle, x within ``SERVE_X_BAND`` of direct solves.  Kernels 1 and 2
+   must launch on the batch-sharded and row-sharded paths, and are held
+   against their plain versions at every shape the children gave them;
+   kernel 1 is timed at the row-sharded shape beside its library route.
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (formation and residuals in both dtypes), with its launches on the
 path that runs it first and on each path (phase 15 adds "cr",
 "continuation", "structured", "sparse_layer" and
-"sparse_applications"); the last line is
+"sparse_applications"; phase 16 adds "batch_sharded_compact_gloo",
+"batch_sharded_gloo", "distribute_batch_gloo", "row_sharded_m100000",
+"row_sharded_m100001", "structured_sharded", "sparse_fleet_mesh",
+"serve_mesh", "batch_sharded_compact_nccl", "batch_sharded_nccl" and
+"distribute_batch_nccl", summed over the ranks; the float64 formation
+entry also holds "row_sharded_shape"); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -214,6 +248,9 @@ def parse_args():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of phase 12's request sizes and data")
+    parser.add_argument("--phase16-child", metavar="BACKEND",
+                        help="run as one rank of phase 16 (the script "
+                        "starts these itself)")
     return parser.parse_args()
 
 
@@ -306,6 +343,14 @@ def device_ms(*fns, calls=100, replays=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def formation_work(b, m, n):
+    """Kernel 1's work at (b, m, n): the elements it must move (A, w, Q
+    and sigma read once, K written once) and its operations: K is
+    symmetric, so its product is one multiply-add per row of A and entry
+    on or above the diagonal, m * n * (n + 1) operations a problem."""
+    return b * m * n + b * m + 2 * b * n * n + b, b * m * n * (n + 1)
 
 
 def bound_ms(nbytes, flops, peak_flops=PEAK_F32):
@@ -493,7 +538,10 @@ def check_residuals(fr, dtype, b, rtol, m=M, n=N):
 
 
 def main() -> int:
-    seed = parse_args().seed
+    args = parse_args()
+    seed = args.seed
+    if args.phase16_child:
+        return phase16_child(args.phase16_child, seed)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -550,6 +598,8 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     path_launches = {"bench_ns": launch_counts(ff, fr, fk)}
+    phase4_ref = dict(status=res.info.status_val.cpu().tolist(),
+                      iterations=res.info.iterations.cpu().tolist())
     print(f"phase 4: first solve {first_s:.2f} s, kernel launches "
           f"{printable(path_launches['bench_ns'])}")
     if not on_card(res.x, res.y, res.info.status_val):
@@ -652,8 +702,16 @@ def main() -> int:
     launches15, errs15 = phase15(pt, ff, fr, fk, card, seed, first_solve)
     path_launches.update(launches15)
     print(f"phase 15 took {time.perf_counter() - t0:.1f} s, on {card}")
+
+    # ---- phase 16: the distributed paths, in child processes ----
+    t0 = time.perf_counter()
+    launches16, errs16, row_shape = phase16(pt, ff, fr, fk, card,
+                                            phase4_ref, seed)
+    path_launches.update(launches16)
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s, on {card}")
     shapes_checked = collections.defaultdict(list)
-    for (name, dtype, shape), err in {**errs14, **errs15}.items():
+    for (name, dtype, shape), err in {**errs14, **errs15,
+                                      **errs16}.items():
         max_err[(name, dtype)] = max(max_err[(name, dtype)], err)
         if list(shape) not in shapes_checked[(name, dtype)]:
             shapes_checked[(name, dtype)].append(list(shape))
@@ -676,6 +734,8 @@ def main() -> int:
                                  for path, counts in path_launches.items()}
         if key == ("residuals", F64):
             r["sparse_shape"] = sparse_shape
+        if key == ("formation", F64):
+            r["row_sharded_shape"] = row_shape
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -746,17 +806,14 @@ def phase5(ff, fr, fk, tl):
                  f", torch.linalg.solve {r['library_ms']:.4f} ms"))
 
     # the work of one call, from the shapes: bytes with each input read and
-    # each output written once, and the operations the function needs: K is
-    # symmetric, so its product is one multiply-add per row of A and entry
-    # on or above the diagonal, m * n * (n + 1) operations
+    # each output written once, and the operations the function needs
     def work(name, dtype, b):
         if name == "residuals":
             return residual_bound(b, M, N, dtype)
         size = torch.empty((), dtype=dtype).element_size()
         peak = PEAK_F32 if dtype == F32 else PEAK_F64
         nbytes, ops = {
-            "formation": (b * M * N + b * M + 2 * b * N * N + b,
-                          b * M * N * (N + 1)),
+            "formation": formation_work(b, M, N),
             # the symmetric product, Jacobi scale, n^3/3 factor, two n^2
             # substitutions
             "kkt_solve": (b * N * N + b * M * N + b * M + b + 2 * b * N,
@@ -2422,6 +2479,533 @@ def flat_tensors(tree):
     if isinstance(tree, torch.Tensor):
         return [tree]
     return [t for v in tree if v is not None for t in flat_tensors(v)]
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the distributed paths, in child processes
+# ---------------------------------------------------------------------------
+
+PHASE16_ROW_N, PHASE16_ROW_M = 200, (100_000, 100_001)
+# phase 14e's fleet of one pattern at n=1,000, cut from 64 to 16 problems
+PHASE16_FLEET_N, PHASE16_FLEET_B = 1_000, 16
+PHASE16_SERVE_REQUESTS = 64
+PHASE16_ARROW = dict(S=128, n0=20, ns=40)
+ARROW_RTOL = 1e-10
+ROW_X_BAND = 1e-8           # max|x sharded - x unsharded| / max|x|
+STRUCTURED_X_BAND = 1e-9
+SERVE_X_BAND = 1e-8
+PHASE16_CHILD_TIMEOUT = 600  # seconds for one group of children
+PHASE16_PG_TIMEOUT = 300     # seconds a collective may wait
+
+
+def random_qp(n, m, seed=0):
+    """tests/utils.py:random_qp (dense, no equality rows): a random
+    convex QP with a PSD Q of condition 1e3 and box constraints."""
+    rng = np.random.default_rng(seed)
+    V = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    Q = (V * np.logspace(-3, 0, n)) @ V.T
+    Q = 0.5 * (Q + Q.T)
+    return (Q, rng.standard_normal(n), rng.standard_normal((m, n)),
+            -rng.random(m), rng.random(m))
+
+
+def random_arrow(S, n0, ns, seed=0):
+    """tests/test_schur.py:_random_arrow as numpy, with a batch axis of
+    one: (K00, Kss, Bs, r0, rs)."""
+    rng = np.random.default_rng(seed)
+    M0 = rng.standard_normal((n0, n0))
+    Ms = rng.standard_normal((S, ns, ns))
+    arrays = (M0 @ M0.T + (S + 1) * np.eye(n0),
+              np.einsum("sij,skj->sik", Ms, Ms) + ns * np.eye(ns),
+              0.3 * rng.standard_normal((S, ns, n0)),
+              rng.standard_normal(n0), rng.standard_normal((S, ns)))
+    return [torch.as_tensor(a, device=DEVICE)[None] for a in arrays]
+
+
+def _keyed(counts):
+    """Launch counts by (kernel, dtype) as JSON-able "kernel dtype" keys."""
+    return {f"{name} {str(dt).replace('torch.', '')}": n
+            for (name, dt), n in counts.items()}
+
+
+def _unkeyed(counts):
+    out = {}
+    for key, n in counts.items():
+        name, dt = key.split()
+        out[(name, getattr(torch, dt))] = n
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase16_children(backend, world, out_dir, seed):
+    """Run ``world`` children of this script (``--phase16-child``) with
+    the environment ``torchrun`` sets; wait for all of them under
+    PHASE16_CHILD_TIMEOUT, killing the rest at the first failure.  Prints
+    rank 0's output and returns every rank's JSON report."""
+    import os
+
+    port = str(_free_port())
+    logs, procs = [], []
+    try:
+        for rank in range(world):
+            # the ranks share the one card: its index is every rank's
+            # local device (torchrun would count LOCAL_RANK up per process)
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                       RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank % torch.cuda.device_count()),
+                       PYTHONFAULTHANDLER="1", PYTHONUNBUFFERED="1")
+            logs.append(open(out_dir / f"{backend}_rank{rank}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--phase16-child", backend,
+                 "--seed", str(seed)],
+                stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
+        deadline = time.perf_counter() + PHASE16_CHILD_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    print(texts[0], end="", flush=True)
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for r in range(1, world):
+            print(f"--- phase 16 {backend} rank {r} ---\n{texts[r][-4000:]}")
+        raise AssertionError(f"phase 16 ({backend}, {world} ranks): exit "
+                             f"codes {codes} (-9: stopped after another "
+                             "rank failed, or at the time limit of "
+                             f"{PHASE16_CHILD_TIMEOUT} s)")
+    return [json.loads((out_dir / f"{backend}_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def phase16(pt, ff, fr, fk, card, phase4_ref, seed):
+    """The distributed paths on the card, in child processes (the parent
+    never joins a process group): 2 ranks over gloo on the one card (NCCL
+    refuses two ranks on one GPU) and 1 rank over NCCL.  Returns the
+    launches by path (summed over the ranks), the kernels' errors at the
+    shapes the children gave them, and kernel 1's times at the
+    row-sharded shape."""
+    from pathlib import Path
+
+    out_dir = Path(__file__).resolve().parent / "build" / "phase16"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "phase4.json").write_text(json.dumps(phase4_ref))
+    launches, shapes = {}, set()
+    for backend, world in (("gloo", 2), ("nccl", 1)):
+        t0 = time.perf_counter()
+        reports = phase16_children(backend, world, out_dir, seed)
+        print(f"phase 16 ({backend}, {world} ranks) took "
+              f"{time.perf_counter() - t0:.1f} s, on {card}", flush=True)
+        for rep in reports:
+            for path, counts in rep["launches"].items():
+                acc = launches.setdefault(path, collections.Counter())
+                acc.update(_unkeyed(counts))
+            shapes |= {(name, getattr(torch, dt), tuple(shape))
+                       for name, dt, shape in rep["shapes"]}
+    launches = {path: {key: counts.get(key, 0)
+                       for key in launch_counts(ff, fr, fk)}
+                for path, counts in launches.items()}
+    for path, counts in launches.items():
+        print(f"phase 16: {path}: kernel launches over the ranks "
+              f"{printable(counts)}", flush=True)
+    errs = check_path_shapes(ff, fr, shapes, "phase 16")
+    # kernel 1 at the row-sharded shape, beside its library route
+    m_local = PHASE16_ROW_M[0] // 2
+    A, w, Q, sigma = formation_inputs(F64, b=1, m=m_local, n=PHASE16_ROW_N)
+    kernel = lambda: ff.fused_formation(A, w, Q, sigma)
+    library = lambda: ff.reference_formation(A, w, Q, sigma)
+    n = PHASE16_ROW_N
+    elems, ops = formation_work(1, m_local, n)
+    bms, by = bound_ms(8 * elems, ops, PEAK_F64)
+    row = dict(B=1, m=m_local, n=n, ms=time_ms(kernel, reps=20, warmup=3),
+               device_ms=device_ms(kernel, calls=10, replays=3),
+               library_ms=time_ms(library, reps=20, warmup=3),
+               library_device_ms=device_ms(library, calls=10, replays=3),
+               bound_ms=bms, bound_by=by)
+    print(f"phase 16: formation float64 at the row-sharded shape B=1 "
+          f"m={m_local} n={n}: kernel {row['ms']:.4f} ms as called, "
+          f"{row['device_ms']:.4f} ms on the card; library route "
+          f"(torch.matmul + elementwise) {row['library_ms']:.4f} / "
+          f"{row['library_device_ms']:.4f} ms; bound {bms:.4f} ms "
+          f"({by}), on {card}", flush=True)
+    return launches, errs, row
+
+
+def phase16_child(backend, seed) -> int:
+    """One rank of phase 16: join the group from the environment
+    (``multihost.initialize``), run the sub-phases, and write the report
+    (launches by path, the kernels' shapes, times) to
+    build/phase16/<backend>_rank<r>.json.  Any failed gate raises."""
+    import os
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    import qpdo_tpu_torch as pt
+    from qpdo_tpu_torch.ops import fused_formation as ff
+    from qpdo_tpu_torch.ops import fused_kkt as fk
+    from qpdo_tpu_torch.ops import fused_residuals as fr
+    from qpdo_tpu_torch.parallel import multihost
+
+    if not torch.cuda.is_available():
+        print("phase 16 child: no CUDA device", file=sys.stderr)
+        return 2
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"])
+                          % torch.cuda.device_count())
+    out_dir = Path(__file__).resolve().parent / "build" / "phase16"
+    phase4_ref = json.loads((out_dir / "phase4.json").read_text())
+    print(f"rank {rank}: joining the {backend} group", flush=True)
+    multihost.initialize(backend=backend, timeout=PHASE16_PG_TIMEOUT)
+    mesh = multihost.global_mesh("batch")
+    tag = f"{backend}, {world} rank{'s' if world > 1 else ''}"
+    report = dict(launches={}, shapes=[], times={})
+    shapes = set()
+
+    def say(*args):
+        """Print on rank 0 (the parent shows rank 0's output); the other
+        ranks log their progress to their own files."""
+        if rank == 0:
+            print(*args, flush=True)
+        else:
+            print(f"rank {rank}:", *[str(a)[:100] for a in args], flush=True)
+
+    @contextlib.contextmanager
+    def path(name, *required):
+        """Count the launches of the path run inside, and record the
+        shapes the solver gives the kernels."""
+        reset_counts(ff, fr, fk)
+        with recording_shapes(shapes):
+            yield
+        torch.cuda.synchronize()
+        counts = launch_counts(ff, fr, fk)
+        require_launched(counts, f"phase 16 {name} ({tag}, rank {rank})",
+                         *required)
+        report["launches"][name] = _keyed(counts)
+
+    say(f"phase 16 ({tag}): {dist.get_backend()} group of "
+        f"{dist.get_world_size()}, mesh {mesh.mesh_dim_names} of "
+        f"{mesh.size()} on {mesh.device_type}; torch {torch.__version__}")
+    t_all = time.perf_counter()
+    phase16a(pt, mesh, rank, world, tag, path, say, report, phase4_ref)
+    if backend == "gloo":
+        phase16b(pt, mesh, rank, world, tag, path, say, report)
+        phase16c(pt, mesh, rank, tag, say, report)
+        phase16d(pt, mesh, rank, tag, path, say, report, seed)
+        phase16e(pt, mesh, rank, tag, path, say, report)
+        phase16f(pt, mesh, rank, tag, path, say, report)
+    report["times"]["all_s"] = time.perf_counter() - t_all
+    report["shapes"] = [[name, str(dt).replace("torch.", ""), list(shape)]
+                        for name, dt, shape in sorted(shapes, key=str)]
+    (out_dir / f"{backend}_rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+    return 0
+
+
+def _gather_full(t):
+    from qpdo_tpu_torch.parallel import full_tensor
+
+    return full_tensor(t).cpu().numpy()
+
+
+def phase16a(pt, mesh, rank, world, tag, path, say, report, phase4_ref):
+    """The bench family at full width through the compacted solve_batch
+    of shard_problems and through solve_batch_sharded, and each rank's own
+    batch through distribute_batch + solve_batch."""
+    from qpdo_tpu_torch.parallel import (multihost, shard_problems,
+                                         solve_batch_sharded)
+    from qpdo_tpu_torch.parallel.dtensor import local_block
+
+    d = bench_problems(B, N, M)
+    problems = pt.Problem(**{k: torch.as_tensor(v, device=DEVICE)
+                             for k, v in d.items()})
+    settings = bench_settings(pt)
+    backend = tag.split(',')[0]
+    ref_status = np.asarray(phase4_ref["status"])
+    ref_iters = np.asarray(phase4_ref["iterations"])
+    # phase 4's path with the batch split: compaction decided on the
+    # global count of active problems (one all-reduce a chunk)
+    with path(f"batch_sharded_compact_{backend}", ("formation", F32),
+              ("residuals", F32), ("residuals", F64)):
+        res, wall = timed_solve(lambda: pt.solve_batch(
+            shard_problems(problems, mesh), settings, compact=True))
+    report["times"]["batch_sharded_compact_s"] = wall
+    status, iters = (_gather_full(res.info.status_val),
+                     _gather_full(res.info.iterations))
+    rp, rd = oracle(d, _gather_full(res.x), _gather_full(res.y))
+    gap = int(np.abs(iters.astype(int) - ref_iters).max())
+    solved = int((status == pt.SOLVED).sum())
+    say(f"phase 16a ({tag}): solve_batch(shard_problems(...), compact=True) "
+        f"B={B} n={N} m={M}: solved {solved}/{B} in {wall:.2f} s "
+        f"({B / wall:.2f} QPs/s), oracle max rp {rp.max():.3e} rd "
+        f"{rd.max():.3e}; against phase 4 (B={B}, compacted): statuses "
+        f"{'equal' if np.array_equal(status, ref_status) else 'DIFFER'}, "
+        f"max iteration difference {gap}")
+    if not (solved == B and rp.max() <= 1.1e-6 and rd.max() <= 1.1e-6
+            and np.array_equal(status, ref_status)):
+        raise AssertionError(f"phase 16a ({tag}): the compacted sharded "
+                             "bench solve")
+
+    with path(f"batch_sharded_{backend}", ("formation", F32),
+              ("residuals", F32), ("residuals", F64)):
+        res, wall = timed_solve(
+            lambda: solve_batch_sharded(problems, mesh, settings))
+    report["times"]["batch_sharded_s"] = wall
+    # DTensor's own full_tensor() (all_gather_into_tensor) killed the
+    # process over gloo on CUDA tensors (a segmentation fault, torch
+    # 2.11): the port reads whole results with parallel.full_tensor
+    local = res.x.to_local()
+    status, iters = (_gather_full(res.info.status_val),
+                     _gather_full(res.info.iterations))
+    x, y = _gather_full(res.x), _gather_full(res.y)
+    if (local.device.type != torch.device(DEVICE).type
+            or local.shape[0] != B // world):
+        raise AssertionError(f"phase 16a ({tag}): the local block "
+                             f"{tuple(local.shape)} on {local.device}")
+    rp, rd = oracle(d, x, y)
+    gap = int(np.abs(iters.astype(int) - ref_iters).max())
+    solved = int((status == pt.SOLVED).sum())
+    # the unsharded solve of this rank's block, in a batch of its size: the
+    # card's batched float32 GEMMs round by batch size, so the same problem
+    # takes up to 2 iterations more or fewer in a batch of 128 than of 256
+    # (measured in phase 16 on an H100), and the split is held to this
+    block = pt.Problem(*(local_block(a, mesh) for a in problems))
+    alone = pt.solve_batch(block, settings)
+    same = (torch.equal(alone.info.iterations, res.info.iterations.to_local())
+            and torch.equal(alone.x, res.x.to_local()))
+    say(f"phase 16a ({tag}): solve_batch_sharded B={B} n={N} m={M}: solved "
+        f"{solved}/{B} in {wall:.2f} s ({B / wall:.2f} QPs/s), oracle max "
+        f"rp {rp.max():.3e} rd {rd.max():.3e}; each rank's block "
+        f"{'bit for bit' if same else 'NOT'} its unsharded solve (x and "
+        f"iterations); against phase 4 (B={B}, compacted): statuses "
+        f"{'equal' if np.array_equal(status, ref_status) else 'DIFFER'}, "
+        f"max iteration difference {gap}")
+    if not (solved == B and rp.max() <= 1.1e-6 and rd.max() <= 1.1e-6
+            and np.array_equal(status, ref_status) and same):
+        raise AssertionError(f"phase 16a ({tag}): the sharded bench solve")
+
+    # each rank's own problems (tests/multihost_worker.py:34-44)
+    dl = bench_problems(B // world, N, M, seed=100 + rank)
+    local = pt.Problem(**{k: torch.as_tensor(v, device=DEVICE)
+                          for k, v in dl.items()})
+    with path(f"distribute_batch_{backend}", ("formation", F32),
+              ("residuals", F32), ("residuals", F64)):
+        res, wall = timed_solve(lambda: pt.solve_batch(
+            multihost.distribute_batch(local, mesh), settings))
+    st = res.info.status_val.to_local().cpu().numpy()
+    rp, rd = oracle(dl, res.x.to_local().cpu().numpy(),
+                    res.y.to_local().cpu().numpy())
+    all_st = _gather_full(res.info.status_val)
+    say(f"phase 16a ({tag}): distribute_batch of {world} x {B // world} "
+        f"own problems + solve_batch: solved "
+        f"{int((all_st == pt.SOLVED).sum())}/{all_st.shape[0]} in "
+        f"{wall:.2f} s; rank 0's oracle max rp {rp.max():.3e} rd "
+        f"{rd.max():.3e}")
+    if not ((st == pt.SOLVED).all() and rp.max() <= 1.1e-6
+            and rd.max() <= 1.1e-6 and (all_st == pt.SOLVED).all()):
+        raise AssertionError(f"phase 16a ({tag}): distribute_batch")
+
+
+def phase16b(pt, mesh, rank, world, tag, path, say, report):
+    """One QP of m >> n with its rows split over the ranks."""
+    import torch.distributed as dist
+
+    from qpdo_tpu_torch.parallel import solve_row_sharded
+
+    n = PHASE16_ROW_N
+    for m in PHASE16_ROW_M:
+        Q, q, A, l, u = random_qp(n, m, seed=0)
+        p = pt.make_problem(Q, q, A, l, u)
+        with path(f"row_sharded_m{m}", ("formation", F64),
+                  ("residuals", F64)):
+            (res, m_orig), wall = timed_solve(
+                lambda: solve_row_sharded(p, pt.Settings(), mesh=mesh))
+        report["times"][f"row_sharded_m{m}_s"] = wall
+        its = int(res.info.iterations[0])
+        parts = [torch.empty_like(res.x) for _ in range(world)]
+        dist.all_gather(parts, res.x, group=mesh.get_group())
+        same_x = all(torch.equal(t, parts[0]) for t in parts)
+        y = _gather_full(res.y)[0]
+        x = res.x[0].cpu().numpy()
+        Ax = A @ x
+        rp = np.abs(Ax - np.clip(Ax + y[:m], l, u)).max()
+        rd = np.abs(Q @ x + q + A.T @ y[:m]).max()
+        m_pad = y.shape[0]
+        tail_zero = bool((y[m:] == 0).all())
+        say(f"phase 16b ({tag}): solve_row_sharded n={n} m={m} (padded to "
+            f"{m_pad}, {m_pad // world} rows a rank): {res.info.status[0]} in "
+            f"{its} iterations, {wall:.2f} s ({wall / max(its, 1) * 1e3:.1f} "
+            f"ms an iteration), oracle {rp:.3e}, {rd:.3e}; padded tail of y "
+            f"{'exactly 0' if tail_zero else 'NOT 0'}; x "
+            f"{'bit-identical' if same_x else 'DIFFERS'} across ranks")
+        if not (res.info.status == ["solved"] and m_orig == m
+                and rp <= 1.1e-6 and rd <= 1.1e-6 and tail_zero and same_x):
+            raise AssertionError(f"phase 16b ({tag}): m={m}")
+        if m == PHASE16_ROW_M[0] and rank == 0:
+            ref, wall1 = timed_solve(
+                lambda: pt.solve(p, pt.Settings(linesearch="bisect")))
+            xr = ref.x[0].cpu().numpy()
+            band = np.abs(x - xr).max() / np.abs(xr).max()
+            its1 = int(ref.info.iterations[0])
+            say(f"phase 16b ({tag}): unsharded solve on the card: "
+                f"{ref.info.status[0]} in {its1} iterations, {wall1:.2f} s; "
+                f"max|x sharded - x unsharded| / max|x| {band:.3e}")
+            report["times"]["row_unsharded_s"] = wall1
+            if not (its1 == its and band <= ROW_X_BAND):
+                raise AssertionError(f"phase 16b ({tag}): against the "
+                                     "unsharded solve")
+
+
+def phase16c(pt, mesh, rank, tag, say, report):
+    """arrow_solve_sharded at phase 15c's shape against arrow_solve."""
+    from qpdo_tpu_torch.ops.schur import (ArrowSystem, arrow_solve,
+                                          arrow_solve_sharded)
+    from qpdo_tpu_torch.parallel.dtensor import dtensor_from_local, local_block
+
+    K00, Kss, Bs, r0, rs = random_arrow(**PHASE16_ARROW)
+    split = lambda a: dtensor_from_local(local_block(a, mesh, 1), mesh, 1,
+                                         a.shape[1])
+    x0_ref, xs_ref = arrow_solve(ArrowSystem(K00, Kss, Bs), r0, rs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x0, xs = arrow_solve_sharded(ArrowSystem(K00, split(Kss), split(Bs)), r0,
+                                 split(rs), mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    xs = _gather_full(xs)
+    scale = max(x0_ref.abs().max().item(), xs_ref.abs().max().item())
+    err = max((x0 - x0_ref).abs().max().item(),
+              float(np.abs(xs - xs_ref.cpu().numpy()).max())) / scale
+    report["times"]["arrow_s"] = wall
+    say(f"phase 16c ({tag}): arrow_solve_sharded S={PHASE16_ARROW['S']} "
+        f"n0={PHASE16_ARROW['n0']} ns={PHASE16_ARROW['ns']}: max error "
+        f"relative to max|x| {err:.3e} against arrow_solve (tol "
+        f"{ARROW_RTOL}), {wall * 1e3:.2f} ms")
+    if not err <= ARROW_RTOL:
+        raise AssertionError(f"phase 16c ({tag}): {err:.3e}")
+
+
+def phase16d(pt, mesh, rank, tag, path, say, report, seed):
+    """Phase 15c's S=128 problem with its scenarios split over the ranks,
+    against the unsharded structured solve."""
+    from qpdo_tpu_torch.parallel.dtensor import dtensor_from_local, local_block
+    from qpdo_tpu_torch.solver import structured
+
+    S, n0, ns, ms = PHASE15_S, PHASE15_N0, PHASE15_NS, PHASE15_MS
+    p = block_angular(S, ms, n0, ns, seed)
+    ref = structured.solve_block_angular_result(
+        structured.BlockAngularProblem(*p), device=DEVICE)
+    fields = structured.BlockAngularProblem._fields
+    split = {"Qs", "qs", "T", "W", "l", "u"}
+
+    def leaf(name, a):
+        t = torch.as_tensor(a, device=DEVICE)
+        if name not in split:
+            return t
+        return dtensor_from_local(local_block(t, mesh, 0), mesh, 0, S)
+
+    sp = structured.BlockAngularProblem(*(leaf(k, a)
+                                          for k, a in zip(fields, p)))
+    with path("structured_sharded", ("residuals", F64)):
+        res, wall = timed_solve(
+            lambda: structured.solve_block_angular_result(sp))
+    report["times"]["structured_s"] = wall
+    x0, xs, y = (res.x[0][0].cpu().numpy(), _gather_full(res.x[1])[0],
+                 _gather_full(res.y)[0])
+    rp, rd = block_angular_oracle(p, x0, xs, y)
+    gap = max(np.abs(x0 - ref.x[0][0].cpu().numpy()).max(),
+              np.abs(xs - ref.x[1][0].cpu().numpy()).max())
+    its, its_ref = int(res.info.iterations[0]), int(ref.info.iterations[0])
+    say(f"phase 16d ({tag}): structured S={S} split over the ranks: "
+        f"{res.info.status[0]} in {its} iterations (unsharded {its_ref}), "
+        f"{wall:.2f} s, max|x - x unsharded| {gap:.3e}, oracle {rp:.3e}, "
+        f"{rd:.3e}")
+    if not (res.info.status == ["solved"] and its == its_ref
+            and gap <= STRUCTURED_X_BAND and rp <= 1.1e-6 and rd <= 1.1e-6):
+        raise AssertionError(f"phase 16d ({tag}): the sharded structured solve")
+
+
+def phase16e(pt, mesh, rank, tag, path, say, report):
+    """Phase 14e's fleet of one pattern (cut to 16 problems) split over
+    the ranks: every problem SOLVED within the oracle.  CG counts move
+    with rounding (ROADMAP Queue 3), so no count is held."""
+    fleet = sparse_fleet(PHASE16_FLEET_N, PHASE16_FLEET_B, seed=3)
+    with path("sparse_fleet_mesh", ("residuals", F64)):
+        res, wall = timed_solve(lambda: pt.solve_sparse_batch(fleet,
+                                                              mesh=mesh))
+    report["times"]["sparse_fleet_s"] = wall
+    st = _gather_full(res.info.status_val)
+    x, y = _gather_full(res.x), _gather_full(res.y)
+    worst = max(max(sparse_oracle(*p[:5], x[k], y[k]))
+                for k, p in enumerate(fleet))
+    say(f"phase 16e ({tag}): solve_sparse_batch n={PHASE16_FLEET_N} "
+        f"B={PHASE16_FLEET_B} over the mesh: solved "
+        f"{int((st == pt.SOLVED).sum())}/{PHASE16_FLEET_B} in {wall:.2f} s, "
+        f"oracle max {worst:.3e}")
+    if not ((st == pt.SOLVED).all() and worst <= 1.1e-6):
+        raise AssertionError(f"phase 16e ({tag}): the sparse fleet")
+
+
+def phase16f(pt, mesh, rank, tag, path, say, report):
+    """SolverService(mesh=) on every rank, 64 bench-family requests
+    submitted on rank 0, against direct solves."""
+    from qpdo_tpu_torch.serve import SolverService
+
+    d = bench_problems(PHASE16_SERVE_REQUESTS, N, M, seed=7)
+    one = lambda k: pt.Problem(**{key: torch.as_tensor(v[k:k + 1],
+                                                       device=DEVICE)
+                                  for key, v in d.items()})
+    results = []
+    with path("serve_mesh", ("formation", F64), ("residuals", F64)):
+        svc = SolverService(max_batch=32, max_wait_ms=20, mesh=mesh)
+        t0 = time.perf_counter()
+        try:
+            if rank == 0:
+                futs = [svc.submit(one(k))
+                        for k in range(PHASE16_SERVE_REQUESTS)]
+                results = [f.result(PHASE16_CHILD_TIMEOUT) for f in futs]
+        finally:
+            svc.shutdown()
+        wall = time.perf_counter() - t0
+    report["times"]["serve_s"] = wall
+    if rank != 0:
+        return
+    x = np.stack([r.x[0].cpu().numpy() for r in results])
+    y = np.stack([r.y[0].cpu().numpy() for r in results])
+    st = np.array([int(r.info.status_val[0]) for r in results])
+    rp, rd = oracle(d, x, y)
+    direct = pt.solve_batch(pt.Problem(**{k: torch.as_tensor(v, device=DEVICE)
+                                          for k, v in d.items()}))
+    gap = float(np.abs(x - direct.x.cpu().numpy()).max())
+    stats = svc.stats()
+    say(f"phase 16f ({tag}): {PHASE16_SERVE_REQUESTS} requests through "
+        f"SolverService(mesh=) in {wall:.2f} s ({stats['batches']} batches): "
+        f"solved {int((st == pt.SOLVED).sum())}, oracle max rp "
+        f"{rp.max():.3e} rd {rd.max():.3e}, max|x - x direct| {gap:.3e}")
+    if not ((st == pt.SOLVED).all() and rp.max() <= 1.1e-6
+            and rd.max() <= 1.1e-6 and gap <= SERVE_X_BAND
+            and stats["completed"] == PHASE16_SERVE_REQUESTS):
+        raise AssertionError(f"phase 16f ({tag}): the service over the mesh")
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ patterns) with its layer ``sparse_qp_layer`` and coarse-to-fine ladders
 scenario-structured solve (``qpdo_tpu_torch.solver.structured``: a
 Schur-complement Newton solve over the scenarios); QPS files
 (``qpdo_tpu_torch.io``, the native parser ``qpdo_tpu_torch.native``) and
-the command line ``python -m qpdo_tpu_torch``.  It
+the command line ``python -m qpdo_tpu_torch``; and the distributed paths
+on ``torch.distributed`` (``qpdo_tpu_torch.parallel``: multi-process
+runs, batch-sharded and row-sharded solves; the sharded Schur solve,
+sparse fleets, service and structured solve over a mesh).  It
 runs on the device of its tensors: on an NVIDIA GPU through hand-written
 CUDA kernels (``csrc/``, built with nvcc at first use), on the CPU
 through the kernels' plain PyTorch versions.  ``make_problem``,

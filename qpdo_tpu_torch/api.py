@@ -124,15 +124,17 @@ def solve_sparse_batch(problems, settings: Optional[Settings] = None,
     each result unchanged and costs nnz(union).  One ``SparseOperator``
     holds the fleet: float leaves stacked along the batch, index maps
     shared.  ``x0``/``y0`` ((B, n)/(B, m)) warm-start every instance.
-    ``device=None`` is "cuda".  ``mesh`` (sharding the fleet over devices)
-    raises NotImplementedError: it waits for ROADMAP.md Queue 1 item 6."""
+    ``device=None`` is "cuda".
+
+    ``mesh`` (a 1-D ``DeviceMesh``; every rank calls this with the whole
+    fleet) splits the fleet over its ranks: the union pattern is built on
+    every rank, each rank sets up and solves its ``torch.chunk`` block of
+    the fleet (float leaves stacked, index maps the same everywhere), and
+    the result's leaves are DTensors of the whole fleet split along the
+    batch axis (``axis`` names the mesh axis, as in the JAX package)."""
     from .solver.sparse import (_as_triplets, _tensor, _torch_dtype,
                                 setup_sparse_batch, union_triplets)
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_sparse_batch(mesh=...): sharding a fleet over devices "
-            "waits for ROADMAP.md Queue 1 item 6 (distributed)")
     settings = settings or Settings()
     validate_settings(settings)
     problems = [tuple(p) for p in problems]
@@ -154,6 +156,22 @@ def solve_sparse_batch(problems, settings: Optional[Settings] = None,
         q_trips = [(d, q_idx, q_shape) for d in q_datas]
         a_trips = [(d, a_idx, a_shape) for d in a_datas]
 
+    B = len(problems)
+    if mesh is not None:
+        from .parallel.dtensor import chunk_bounds, group_of, local_block
+
+        group = group_of(mesh)
+        lo, hi = chunk_bounds(B, torch.distributed.get_world_size(group),
+                              torch.distributed.get_rank(group))
+        if hi == lo:
+            raise ValueError(f"solve_sparse_batch: {B} problems over "
+                             f"{mesh.size()} ranks leave a rank without one")
+        problems, q_trips, a_trips = (v[lo:hi] for v in (problems, q_trips,
+                                                          a_trips))
+        block = lambda v: None if v is None else local_block(
+            v if isinstance(v, torch.Tensor) else torch.as_tensor(v), mesh)
+        x0, y0 = block(x0), block(y0)
+
     def stack(values):
         return torch.stack([_tensor(v, dt, device).reshape(-1)
                             for v in values])
@@ -166,7 +184,12 @@ def solve_sparse_batch(problems, settings: Optional[Settings] = None,
         stack([p[5] if len(p) > 5 else 0.0 for p in problems]),
         a_trips[0][2][0], settings.scaling, precond=settings.precond,
         precond_block=settings.precond_block, ruiz_kkt=settings.ruiz_kkt)
-    return solve_scaled(op, settings, _warm(x0, op.q), _warm(y0, op.l))
+    res = solve_scaled(op, settings, _warm(x0, op.q), _warm(y0, op.l))
+    if mesh is None:
+        return res
+    from .parallel.dtensor import dtensor_from_local
+
+    return tree_map(lambda a: dtensor_from_local(a, mesh, 0, B), res)
 
 
 def solve_sparse_heterogeneous(problems, settings: Optional[Settings] = None,
@@ -192,6 +215,10 @@ def solve_sparse_heterogeneous(problems, settings: Optional[Settings] = None,
     padded = [pad_sparse_problem(p, n_pad, m_pad, dt) for p in problems]
     res = solve_sparse_batch(padded, settings, dtype, mesh=mesh, axis=axis,
                              device=device)
+    if mesh is not None:
+        from .parallel.dtensor import full_tensor
+
+        res = tree_map(full_tensor, res)
     return [unpad_result(tree_map(lambda a, i=i: a[i:i + 1], res), n, m)
             for i, (n, m) in enumerate(dims)]
 

@@ -11,6 +11,10 @@ has a batch size, a device and a dtype.  The solver core
   modes of ``Settings.kkt_solver`` ("chol", "ns", "inv", "cg") and the
   incremental KKT cache of ``Settings.kkt_update_rows``;
   ``saddle_polish`` is the polish's solve.
+- ``RowShardedOperator``: a ``DenseOperator`` that holds one rank's block
+  of the constraint rows of a problem whose rows are split over a process
+  group (``parallel/row_sharded.py``); its comm (``op.comm``) reduces
+  every contraction over the rows.
 - ``SparseOperator`` (JAX l.684-1483): sparse triplets of Q/A with the
   matrix-free Newton solves of the large-n path: preconditioned CG
   (Jacobi, block-Jacobi, two-level) and, on banded KKT patterns, the
@@ -37,6 +41,10 @@ from .ops.linalg import (_cholesky_nan, cholesky_solve, form_kkt,
                          resolve_dtype, saddle_polish_solve)
 from .types import ScaledProblem, Settings, tree_map
 
+# Every operator may carry a comm (``parallel/comm.py``) in ``comm``: the
+# reductions over the entries it splits over the ranks of a process
+# group.  None (a single-process operator) changes nothing.
+
 
 def cast_scaled_problem(sp: ScaledProblem, to_dtype) -> ScaledProblem:
     """Cast every leaf of the problem dtype to ``to_dtype``."""
@@ -56,6 +64,8 @@ def _ew_tol(tol: float, rhs, tol_hint):
 class DenseOperator:
     """Dense Q/A of a batch, with the KKT formation kernel and the Newton
     solves of every ``kkt_solver`` mode."""
+
+    comm = None
 
     def __init__(self, sp: ScaledProblem):
         self.sp = sp
@@ -178,8 +188,8 @@ class DenseOperator:
             pcg_iters = 32 if (reduced and settings.mu_min < 1e-7) else 0
         # the fused solve runs in float32 whatever kkt_dtype says: hand it
         # the casts kept by this operator instead of two copies per call,
-        # and only where it runs (fused_kkt_route)
-        fused = settings.pallas_kkt and fused_kkt_route(
+        # and only where it runs (fused_kkt_route; not on split rows)
+        fused = self.comm is None and settings.pallas_kkt and fused_kkt_route(
             self.device.type, resolve_dtype(settings.kkt_dtype, self.dtype))
         kkt_mats = ((self._mat("Q", torch.float32),
                      self._mat("A", torch.float32)) if fused else None)
@@ -191,7 +201,7 @@ class DenseOperator:
                                    pcg_refine=pcg_iters,
                                    pallas_kkt=settings.pallas_kkt,
                                    escalate_rtol=settings.kkt_escalate_rtol,
-                                   kkt_mats=kkt_mats)
+                                   kkt_mats=kkt_mats, comm=self.comm)
 
     def kkt_cache_init(self, active, mu, settings: Settings, sigma=None):
         """The carried KKT cache, built exactly: the explicit inverse for
@@ -202,8 +212,10 @@ class DenseOperator:
                 sigma = torch.full(d.q.shape[:1], settings.sigma_init,
                                    dtype=self.dtype, device=self.device)
             return kkt_inverse(d.Q, d.A, active, mu, sigma,
-                               settings.proximal, settings.kkt_dtype)
-        return kkt_cache_build(d.Q, d.A, active / mu, settings.kkt_dtype)
+                               settings.proximal, settings.kkt_dtype,
+                               self.comm)
+        return kkt_cache_build(d.Q, d.A, active / mu, settings.kkt_dtype,
+                               self.comm)
 
     def newton_solve_cached(self, active, mu, sigma, rhs,
                             settings: Settings, cache, dx_prev=None,
@@ -219,7 +231,7 @@ class DenseOperator:
         return newton_system_solve_cached(
             d.Q, d.A, active / mu, sigma, rhs, cache, settings.proximal,
             settings.refine_steps, settings.kkt_dtype,
-            settings.kkt_update_rows)
+            settings.kkt_update_rows, self.comm)
 
     def _state_kmv(self, active, mu, sigma, proximal: bool):
         """v -> K v with state-dtype matvecs (the refinement's residual)."""
@@ -227,7 +239,10 @@ class DenseOperator:
         w = active / mu
 
         def Kmv(v):
-            Kv = mv(d.Q, v) + mtv(d.A, w * mv(d.A, v))
+            AtwAv = mtv(d.A, w * mv(d.A, v))
+            if self.comm is not None:
+                self.comm.sum(AtwAv)
+            Kv = mv(d.Q, v) + AtwAv
             if proximal:
                 Kv = Kv + sigma[:, None] * v
             return Kv
@@ -245,7 +260,7 @@ class DenseOperator:
         kdt = resolve_dtype(settings.kkt_dtype, dt)
         K = form_kkt(self._mat("Q", kdt), self._mat("A", kdt),
                      active.to(kdt), mu.to(kdt), sigma.to(kdt),
-                     settings.proximal)
+                     settings.proximal, self.comm)
         iters = settings.kkt_cg_fixed
         Kmv = lambda v: mv(K, v)
         precond = lambda r: mv(X, r)
@@ -292,11 +307,10 @@ class DenseOperator:
         dt = self.dtype
         kdt = resolve_dtype(settings.kkt_dtype, dt)
         if ytilde is not None:  # fused-rhs mode: no GEMM to ride here
-            rhs = -(res_dual_in
-                    + mtv(self._mat("A", kdt), ytilde.to(kdt)).to(dt))
+            rhs = -(res_dual_in + self.Atmv(ytilde, dtype=kdt))
         K = form_kkt(self._mat("Q", kdt), self._mat("A", kdt),
                      active.to(kdt), mu.to(kdt), sigma.to(kdt),
-                     settings.proximal)
+                     settings.proximal, self.comm)
         diag = torch.diagonal(K, dim1=-2, dim2=-1)
         pos = diag > 0
         dinv = torch.where(pos, 1.0 / torch.where(pos, diag,
@@ -330,7 +344,8 @@ class DenseOperator:
         kdt = resolve_dtype(settings.kkt_dtype, dt)
         proximal = settings.proximal
         K = form_kkt(self._mat("Q", kdt), self._mat("A", kdt),
-                     active.to(kdt), mu.to(kdt), sigma.to(kdt), proximal)
+                     active.to(kdt), mu.to(kdt), sigma.to(kdt), proximal,
+                     self.comm)
         n = K.shape[-1]
         eye = torch.eye(n, dtype=kdt, device=K.device)
         ns_steps = max(1, settings.kkt_ns_steps)
@@ -391,6 +406,93 @@ class DenseOperator:
 
     def cast(self, dtype) -> "DenseOperator":
         return DenseOperator(cast_scaled_problem(self.sp, dtype))
+
+
+class RowShardedOperator(DenseOperator):
+    """A ``DenseOperator`` over one rank's block of the constraint rows of
+    a problem whose rows are split over the ranks of ``comm``
+    (``parallel/comm.RowComm``): A (B, m_local, n), l, u, E, the dual
+    vectors and mu hold the local rows; Q, q, D and the primal vectors
+    are replicated.  Each contraction over the rows is a local product
+    and one all-reduce: ``Atmv``, ``Atmv2``, the KKT formation (kernel 1
+    on the local rows, ``ops/linalg.form_kkt``), the refinement's
+    ``A'(w A v)``; the core reduces its own norms and sums through
+    ``comm``.  ``Amv``, ``Amv2`` and ``QAmv2`` are row-local.
+
+    The hard rows of the mixed-GEMM phase are the k smallest-mu rows of
+    the whole problem: mu is gathered from every rank to pick them, and
+    each rank treats the ones it holds; the incremental KKT cache picks
+    its rows the same way (``ops/linalg.newton_system_solve_cached``).
+    The polish gathers the rows."""
+
+    def __init__(self, sp: ScaledProblem, comm):
+        super().__init__(sp)
+        self.comm = comm
+
+    def _Atmv_local(self, y, dtype=None):
+        return super().Atmv(y, dtype)
+
+    def Atmv(self, y, dtype=None):
+        return self.comm.sum(self._Atmv_local(y, dtype))
+
+    def Atmv2(self, ya, yb):
+        AtV = torch.matmul(self.sp.data.A.mT, torch.stack([ya, yb], dim=-1))
+        self.comm.sum(AtV)
+        return AtV[..., 0], AtV[..., 1]
+
+    def _hard_rows(self, mu, k: int):
+        """(local row index (B, k), held here (B, k)) of the k
+        smallest-mu rows of the whole problem, in the order of the
+        single-device pick; a row held elsewhere gets index m_local, one
+        past the local rows."""
+        m_local = mu.shape[-1]
+        idx = super()._hard_rows(self.comm.gather_rows(mu), k)
+        lo = self.comm.rank * m_local
+        here = (idx >= lo) & (idx < lo + m_local)
+        return torch.where(here, idx - lo, m_local), here
+
+    def _rows_of(self, li, here):
+        A = self.sp.data.A
+        safe = torch.where(here, li, 0)
+        return torch.gather(A, 1, safe[..., None].expand(-1, -1, A.shape[-1]))
+
+    def Amv_mixed(self, x, mu, k: int, dtype):
+        k = min(k, mu.shape[-1] * self.comm.size)
+        li, here = self._hard_rows(mu, k)
+        fast = self.Amv(x, dtype=dtype)
+        exact = mv(self._rows_of(li, here), x)
+        # rows held elsewhere land in a scratch column past the local rows
+        ext = torch.cat([fast, torch.zeros_like(fast[:, :1])], dim=1)
+        return ext.scatter(1, li, exact)[:, :-1]
+
+    def Atmv_mixed(self, y, mu, k: int, dtype):
+        k = min(k, mu.shape[-1] * self.comm.size)
+        li, here = self._hard_rows(mu, k)
+        ext = torch.cat([y, torch.zeros_like(y[:, :1])], dim=1)
+        y_soft = ext.scatter(1, li, torch.zeros_like(li, dtype=y.dtype))
+        y_hard = torch.where(here, ext.gather(1, li), 0.0)
+        part = (self._Atmv_local(y_soft[:, :-1], dtype=dtype)
+                + mtv(self._rows_of(li, here), y_hard))
+        return self.comm.sum(part)
+
+    def saddle_polish(self, act, bnd, settings: Settings):
+        """The polish's saddle solve on every rank, on the rows gathered
+        from every rank (once per polish; the JAX package's GSPMD
+        gathers the sharded rows for the LU as well).  Returns x and the
+        local rows of y."""
+        d = self.sp.data
+        g = self.comm.gather_rows
+        xp, yp = saddle_polish_solve(d.Q, g(d.A), d.q, g(act), g(bnd),
+                                     settings.polish_delta,
+                                     settings.polish_refine,
+                                     settings.kkt_dtype)
+        m_local = act.shape[-1]
+        lo = self.comm.rank * m_local
+        return xp, yp[:, lo:lo + m_local]
+
+    def cast(self, dtype) -> "RowShardedOperator":
+        return RowShardedOperator(cast_scaled_problem(self.sp, dtype),
+                                  self.comm)
 
 
 # ---------------------------------------------------------------------------
@@ -459,6 +561,8 @@ class SparseOperator:
               "c", "D", "Dinv", "E", "Einv", "cost", "cinv", "l_finite",
               "u_finite", "pjA", "pjQ", "pcA", "pcQ", "pc_counts", "bdA",
               "bdAsub", "bdQ", "bdQsub", "bd_shape", "ellQ", "ellA", "ellAt")
+
+    comm = None
 
     def __init__(self, **fields):
         unknown = set(fields) - set(self.FIELDS)
@@ -1044,18 +1148,27 @@ class BlockAngularOperator:
     ``Amv_mixed`` and no ``kkt_cache_init``, so the core's operator gates
     skip the mixed phase and the carried cache, as the JAX core's
     ``hasattr`` gates do.
+
+    Scenario-sharded (``comm``, a ``parallel/comm.ScenarioComm``): the
+    operator holds this rank's scenarios (Qs, T, W, the scenario parts of
+    q, D and the dual vectors) and the replicated x0 block; the sums over
+    the scenarios (T'y in ``Atmv``, the Schur complement S0 and its
+    right-hand side in ``newton_solve``) are local sums and one
+    all-reduce each, and the core reduces its norms and inner products
+    through ``comm``.
     """
 
     FIELDS = ("Q0", "Qs", "T", "W", "q", "l", "u", "c", "D", "Dinv", "E",
               "Einv", "cost", "cinv", "l_finite", "u_finite")
 
-    def __init__(self, **fields):
+    def __init__(self, comm=None, **fields):
         unknown = set(fields) - set(self.FIELDS)
         if unknown:
             raise TypeError(f"BlockAngularOperator: unknown fields "
                             f"{sorted(unknown)}")
         for name in self.FIELDS:
             setattr(self, name, fields[name])
+        self.comm = comm
         self._casts = {}
 
     dtype = property(lambda self: self.Q0.dtype)
@@ -1105,6 +1218,8 @@ class BlockAngularOperator:
         S, ms, _, _ = self.shapes
         yk = y.to(T.dtype).reshape(y.shape[0], S, ms, 1)
         r0 = (T.mT @ yk)[..., 0].sum(dim=1)
+        if self.comm is not None:
+            self.comm.sum(r0)
         rs = (W.mT @ yk)[..., 0]
         return torch.cat([r0, rs.flatten(1)], dim=1).to(self.dtype)
 
@@ -1119,6 +1234,8 @@ class BlockAngularOperator:
         S, ms, _, _ = self.shapes
         Y = torch.stack([ya, yb], dim=-1).reshape(ya.shape[0], S, ms, 2)
         R0 = (self.T.mT @ Y).sum(dim=1)                 # (B, n0, 2)
+        if self.comm is not None:
+            self.comm.sum(R0)
         Rs = (self.W.mT @ Y).flatten(1, 2)              # (B, S*ns, 2)
         R = torch.cat([R0, Rs], dim=1)
         return R[..., 0], R[..., 1]
@@ -1150,7 +1267,8 @@ class BlockAngularOperator:
         r0, rs = self.split_primal(rhs)
         w = (active / mu).reshape(Bn, S, ms, 1)
         wT, wW = w * self.T, w * self.W
-        K00 = self.Q0 + (self.T.mT @ wT).sum(dim=1)
+        TwT = (self.T.mT @ wT).sum(dim=1)
+        K00 = self.Q0 if self.comm is not None else self.Q0 + TwT
         Kss = self.Qs + self.W.mT @ wW
         Bs = self.W.mT @ wT                             # (B, S, ns, n0)
         if settings.proximal:
@@ -1159,12 +1277,21 @@ class BlockAngularOperator:
             Kss = Kss + sigma[:, None, None, None] * torch.eye(
                 ns, dtype=dt, device=self.device)
         SB, Sr, KinvB, Kinvr = local_contribution(Kss, Bs, rs, refine)
-        S0 = K00 - SB.sum(dim=1)
-        rhs0 = r0 - Sr.sum(dim=1)
+        if self.comm is None:
+            S0 = K00 - SB.sum(dim=1)
+            rhs0 = r0 - Sr.sum(dim=1)
+            ok = all_finite
+        else:
+            # the sums over the scenarios of every rank: one all-reduce
+            part = self.comm.sum(torch.cat(
+                [TwT - SB.sum(dim=1), Sr.sum(dim=1)[..., None]], dim=-1))
+            S0 = K00 + part[..., :-1]
+            rhs0 = r0 - part[..., -1]
+            ok = lambda v: ~self.comm.primal_any_nonfinite(v)
         dx0 = cholesky_solve(S0, rhs0, refine)
         dxs = Kinvr - (KinvB @ dx0[:, None, :, None])[..., 0]
         dx = torch.cat([dx0, dxs.flatten(1)], dim=1)
-        return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
+        return bwhere(ok(dx), dx, torch.zeros_like(dx))
 
     def cast(self, dtype) -> "BlockAngularOperator":
         """Every float leaf in ``dtype`` (kept, so that the hybrid warmup
@@ -1174,6 +1301,6 @@ class BlockAngularOperator:
         key = ("op", dtype)
         if key not in self._casts:
             self._casts[key] = BlockAngularOperator(
-                **{name: getattr(self, name).to(dtype)
-                   for name in self.FIELDS})
+                comm=self.comm, **{name: getattr(self, name).to(dtype)
+                                   for name in self.FIELDS})
         return self._casts[key]

@@ -16,6 +16,13 @@ kernel of ``ops/fused_kkt.py``.  The
 incremental variant (``kkt_cache_build``, ``newton_system_solve_cached``)
 carries K_tilde = Q + A' diag(w_applied) A across steps and updates it
 with the k rows whose weight changed most.
+
+``comm`` (``parallel/comm.py``, the row-sharded solve): A, active and mu
+hold this rank's rows.  K is then formed on the local rows (the formation
+kernel on a CUDA tensor), with Q and sigma*I added on the root rank only,
+and summed over the ranks by one all-reduce; the state-dtype matvecs of
+the refinement reduce A'(w A v) the same way.  Everything after K is n x
+n and replicated.
 """
 
 from __future__ import annotations
@@ -54,7 +61,17 @@ def fused_kkt_route(device_type: str, kkt_dtype: torch.dtype) -> bool:
     return device_type == "cpu" or kkt_dtype == torch.float32
 
 
-def form_kkt(Q, A, active, mu, sigma, proximal: bool):
+def _formation(A, w, Q, sig, comm=None):
+    """The formation kernel's K = A' diag(w) A + Q + sig*I; with ``comm``
+    over every rank's rows (Q and sig enter on the root rank only)."""
+    if comm is None:
+        return fused_formation(A, w, Q, sig)
+    if not comm.root:
+        Q, sig = torch.zeros_like(Q), torch.zeros_like(sig)
+    return comm.sum(fused_formation(A, w, Q, sig))
+
+
+def form_kkt(Q, A, active, mu, sigma, proximal: bool, comm=None):
     """K = Q + [proximal]*sigma*I + A' diag(active/mu) A (sigma is (B,)).
 
     Goes through the formation kernel on a CUDA tensor; the weights are
@@ -62,7 +79,7 @@ def form_kkt(Q, A, active, mu, sigma, proximal: bool):
     divides them (``linalg.py:39``)."""
     w = active / mu
     sig = sigma if proximal else torch.zeros_like(sigma)
-    return fused_formation(A, w, Q, sig)
+    return _formation(A, w, Q, sig, comm)
 
 
 def _static_reg(dtype: torch.dtype) -> float:
@@ -126,14 +143,15 @@ def cholesky_solve(K, rhs, refine_steps: int = 0):
     return dx
 
 
-def kkt_inverse(Q, A, active, mu, sigma, proximal: bool, kkt_dtype=None):
+def kkt_inverse(Q, A, active, mu, sigma, proximal: bool, kkt_dtype=None,
+                comm=None):
     """Explicit K^{-1} per problem (the init of the Newton-Schulz-tracked
     inverse, kkt_solver "ns"): Jacobi-prescaled Cholesky, one matrix-RHS
     triangular solve and one GEMM."""
     dt = Q.dtype
     kdt = resolve_dtype(kkt_dtype, dt)
     K = form_kkt(Q.to(kdt), A.to(kdt), active.to(kdt), mu.to(kdt),
-                 sigma.to(kdt), proximal)
+                 sigma.to(kdt), proximal, comm)
     chol, dinv = jacobi_cholesky(K)
     n = K.shape[-1]
     eye = torch.eye(n, dtype=kdt, device=K.device).expand(K.shape)
@@ -155,13 +173,14 @@ def _prescaled_tri_solver(chol, dinv, out_dtype):
     return solve1
 
 
-def _state_dtype_kkt_solver(Q, A, active, mu, sigma, proximal: bool):
+def _state_dtype_kkt_solver(Q, A, active, mu, sigma, proximal: bool,
+                            comm=None):
     """b -> K^-1 b with the factor in the state dtype: the escalation of
     the PCG refinement (``linalg.py:179-213`` of the JAX package) for the
     penalties below which a float32 factor cannot exist.  Jacobi-prescaled
     like the fast path, without the static shift; ``torch.linalg`` factors
     in float64 on the card as on the CPU."""
-    K = form_kkt(Q, A, active, mu, sigma, proximal)
+    K = form_kkt(Q, A, active, mu, sigma, proximal, comm)
     Khat, dinv = _jacobi_scale(K)
     chol = _cholesky_nan(Khat)
     return _prescaled_tri_solver(chol, dinv, Q.dtype)
@@ -187,14 +206,17 @@ def _pcg_tol(dt: torch.dtype) -> float:
     return 1e-9 if dt == torch.float64 else 1e-5
 
 
-def _exact_kmv(Q, A, w, sigma, proximal: bool, kdt, dt):
+def _exact_kmv(Q, A, w, sigma, proximal: bool, kdt, dt, comm=None):
     """v -> K(w) v with matvecs in ``kdt`` (the KKT dtype for the
     Richardson sweeps, the state dtype for PCG); sigma is (B,)."""
     Qk, Ak, wk = Q.to(kdt), A.to(kdt), w.to(kdt)
 
     def Kmv(v):
         vk = v.to(kdt)
-        Kv = (mv(Qk, vk) + mtv(Ak, wk * mv(Ak, vk))).to(dt)
+        AtwAv = mtv(Ak, wk * mv(Ak, vk))
+        if comm is not None:
+            comm.sum(AtwAv)
+        Kv = (mv(Qk, vk) + AtwAv).to(dt)
         if proximal:
             Kv = Kv + sigma[:, None] * v
         return Kv
@@ -209,7 +231,7 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
                         pcg_refine: int = 0,
                         pallas_kkt: bool = False,
                         escalate_rtol: float = 0.0,
-                        kkt_mats=None):
+                        kkt_mats=None, comm=None):
     """Form K and solve K dx = rhs per problem (the chol Newton solve).
 
     Arguments are batched: Q (B, n, n), A (B, m, n), active/mu (B, m),
@@ -241,14 +263,30 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
     formation kernel has no rhs column, so here it is computed apart,
     as the JAX package's fused-formation branch does (l.329-338), and K
     takes that branch's arithmetic (weights divided in the state dtype).
-    Both agree with the GEMM branch to rounding."""
+    Both agree with the GEMM branch to rounding.
+
+    With ``comm`` (A, active and mu hold this rank's rows) the fused
+    kernel, which forms K from the whole of A, does not run: the
+    ``pallas_kkt`` route takes the formation route on the local rows in
+    float32, one all-reduce of K, and the Jacobi-scaled Cholesky factor,
+    so that A is never gathered."""
     dt = Q.dtype
     kdt = resolve_dtype(kkt_dtype, dt)
     w = active / mu
     fused_rhs = ytilde is not None
     if fused_rhs:
-        rhs = -(res_dual_in + mtv(A.to(kdt), ytilde.to(kdt)).to(dt))
-    if pallas_kkt and fused_kkt_route(Q.device.type, kdt):
+        Aty = mtv(A.to(kdt), ytilde.to(kdt))
+        if comm is not None:
+            comm.sum(Aty)
+        rhs = -(res_dual_in + Aty.to(dt))
+    fdt = kdt                       # the dtype K is formed and factored in
+    if pallas_kkt and fused_kkt_route(Q.device.type, kdt) and comm is not None:
+        # the fused kernel forms K from the whole of A: with the rows split,
+        # the same function is the formation route below on the local rows,
+        # one all-reduce of K and the float32 factor, A never gathered (and,
+        # as in the fused route, no escalation to a state-dtype factor)
+        fdt, pallas_formation, escalate_rtol = torch.float32, True, 0.0
+    elif pallas_kkt and fused_kkt_route(Q.device.type, kdt):
         f32 = torch.float32
         sig_eff = sigma.to(f32) if proximal else torch.zeros_like(sigma, dtype=f32)
         Q32, A32 = kkt_mats if kkt_mats is not None else (Q.to(f32), A.to(f32))
@@ -267,29 +305,30 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
                          rhs, dx, refine_steps)
         return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
     if pallas_formation or fused_rhs:
-        sig = sigma.to(kdt) if proximal else torch.zeros_like(sigma, dtype=kdt)
-        K = fused_formation(A.to(kdt), w.to(kdt), Q.to(kdt), sig)
+        sig = sigma.to(fdt) if proximal else torch.zeros_like(sigma, dtype=fdt)
+        K = _formation(A.to(fdt), w.to(fdt), Q.to(fdt), sig, comm)
     else:
-        K = form_kkt(Q.to(kdt), A.to(kdt), active.to(kdt), mu.to(kdt),
-                     sigma.to(kdt), proximal)
+        K = form_kkt(Q.to(fdt), A.to(fdt), active.to(fdt), mu.to(fdt),
+                     sigma.to(fdt), proximal, comm)
     chol, dinv = jacobi_cholesky(K)
     solve1 = _prescaled_tri_solver(chol, dinv, dt)
 
     if pcg_refine > 0:
-        Kmv_exact = _exact_kmv(Q, A, w, sigma, proximal, dt, dt)
+        Kmv_exact = _exact_kmv(Q, A, w, sigma, proximal, dt, dt, comm)
         dx, _, rel = pcg(Kmv_exact, rhs, solve1, _pcg_tol(dt), pcg_refine)
-        if escalate_rtol > 0 and kdt != dt:
+        if escalate_rtol > 0 and fdt != dt:
             esc_ok = rel <= escalate_rtol              # False on NaN
             # lax.cond under vmap computes both sides; here the state-dtype
             # factor is built only when some problem needs it
             if not bool(esc_ok.all()):
                 solve64 = _state_dtype_kkt_solver(Q, A, active, mu, sigma,
-                                                  proximal)
+                                                  proximal, comm)
                 dx2 = solve64(rhs)
                 dx2 = dx2 + solve64(rhs - Kmv_exact(dx2))
                 dx = bwhere(esc_ok, dx, dx2)
     else:
-        dx = _refine(solve1, _exact_kmv(Q, A, w, sigma, proximal, kdt, dt),
+        dx = _refine(solve1,
+                     _exact_kmv(Q, A, w, sigma, proximal, kdt, dt, comm),
                      rhs, solve1(rhs), refine_steps)
     # a NaN factor must not poison the state
     return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
@@ -352,14 +391,14 @@ def saddle_polish_solve(Q, A, q, act, bnd, delta, refine_steps: int = 2,
 # Incremental KKT formation (Settings.kkt_update_rows)
 # ---------------------------------------------------------------------------
 
-def kkt_cache_build(Q, A, w, kkt_dtype=None):
+def kkt_cache_build(Q, A, w, kkt_dtype=None, comm=None):
     """A fresh cache (K_tilde, w_applied) = (Q + A' diag(w) A, w) in the
     KKT dtype: the formation kernel with sigma = 0 (sigma is applied at
-    factor time)."""
+    factor time).  With ``comm``, w_applied holds the local rows."""
     kdt = resolve_dtype(kkt_dtype, Q.dtype)
     wk = w.to(kdt)
     zero = torch.zeros(Q.shape[:1], dtype=kdt, device=Q.device)
-    return fused_formation(A.to(kdt), wk, Q.to(kdt), zero), wk
+    return _formation(A.to(kdt), wk, Q.to(kdt), zero, comm), wk
 
 
 def top_rows(v, k: int):
@@ -369,25 +408,55 @@ def top_rows(v, k: int):
     return torch.sort(v, dim=-1, descending=True, stable=True)[1][..., :k]
 
 
+def _top_rows_split(dw, k: int, comm):
+    """The k largest |dw| rows of the whole problem, picked from the rows
+    of every rank: (local index (B, k), where this rank holds the row
+    (B, k)); a row held elsewhere gets index m_local, one past the local
+    rows, and a weight change of 0."""
+    m_local = dw.shape[-1]
+    idx = top_rows(torch.abs(comm.gather_rows(dw)), k)
+    lo = comm.rank * m_local
+    here = (idx >= lo) & (idx < lo + m_local)
+    return torch.where(here, idx - lo, m_local), here
+
+
 def newton_system_solve_cached(Q, A, w, sigma, rhs, cache, proximal: bool,
-                               refine_steps: int, kkt_dtype, k: int):
+                               refine_steps: int, kkt_dtype, k: int,
+                               comm=None):
     """The incremental Newton solve (``linalg.py:506-563``): add the rows
     of the k largest |w - w_applied| to K_tilde, factor K_tilde (+ sigma I)
     and solve the exact K(w) dx = rhs by 1 + max(refine_steps, 1) PCG
     iterations with that factor as the preconditioner.  Returns
-    (dx, (K_tilde, w_applied))."""
+    (dx, (K_tilde, w_applied)).  With ``comm`` the k rows are picked over
+    every rank's rows, each rank adds the ones it holds and one
+    all-reduce sums the update of K_tilde."""
     dt = Q.dtype
     kdt = resolve_dtype(kkt_dtype, dt)
     Ktilde, w_app = cache
-    k = min(int(k), A.shape[-2])
     Ak = A.to(kdt)
 
     dw = w.to(kdt) - w_app
-    idx = top_rows(torch.abs(dw), k)
-    dw_sel = torch.gather(dw, 1, idx)                            # (B, k)
-    A_sel = torch.gather(Ak, 1, idx[..., None].expand(-1, -1, Ak.shape[-1]))
-    Ktilde = Ktilde + torch.matmul(A_sel.mT, dw_sel[..., None] * A_sel)
-    w_app = w_app.scatter(1, idx, torch.gather(w_app, 1, idx) + dw_sel)
+    if comm is None:
+        k = min(int(k), A.shape[-2])
+        idx = top_rows(torch.abs(dw), k)
+        dw_sel = torch.gather(dw, 1, idx)                        # (B, k)
+        A_sel = torch.gather(Ak, 1,
+                             idx[..., None].expand(-1, -1, Ak.shape[-1]))
+        Ktilde = Ktilde + torch.matmul(A_sel.mT, dw_sel[..., None] * A_sel)
+        w_app = w_app.scatter(1, idx, torch.gather(w_app, 1, idx) + dw_sel)
+    else:
+        k = min(int(k), A.shape[-2] * comm.size)
+        idx, here = _top_rows_split(dw, k, comm)
+        safe = torch.where(here, idx, 0)
+        dw_sel = torch.where(here, torch.gather(dw, 1, safe), 0.0)
+        A_sel = torch.gather(Ak, 1,
+                             safe[..., None].expand(-1, -1, Ak.shape[-1]))
+        Ktilde = Ktilde + comm.sum(
+            torch.matmul(A_sel.mT, dw_sel[..., None] * A_sel))
+        # rows held elsewhere land in a scratch column past the local rows
+        ext = torch.cat([w_app, torch.zeros_like(w_app[:, :1])], dim=1)
+        w_app = ext.scatter(1, idx, torch.gather(ext, 1, idx)
+                            + dw_sel)[:, :-1]
 
     Kfac = Ktilde
     if proximal:
@@ -396,7 +465,7 @@ def newton_system_solve_cached(Q, A, w, sigma, rhs, cache, proximal: bool,
             n, dtype=kdt, device=Q.device)
     chol, dinv = jacobi_cholesky(Kfac)
     solve1 = _prescaled_tri_solver(chol, dinv, dt)
-    Kmv = _exact_kmv(Q, A, w, sigma, proximal, kdt, dt)
+    Kmv = _exact_kmv(Q, A, w, sigma, proximal, kdt, dt, comm)
 
     tiny = torch.finfo(dt).tiny
     x = torch.zeros_like(rhs)

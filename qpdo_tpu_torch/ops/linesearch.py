@@ -9,6 +9,12 @@ over 2m hinge terms, and its root by a safeguarded bisection
 (``pwa_root_bisect_chunk``: vectors of candidates per sequential step) or
 by the sorted breakpoint scan (``pwa_root``, the library default).  eta and beta are (B,), delta and
 alpha (B, 2m); every sum runs over one problem's hinges.
+
+With a comm (``parallel/comm.py``: the rows of the problem split over
+ranks) each rank holds the hinges of its own rows: the sums over them are
+reduced over the ranks.  The bisection then runs as
+``pwa_root_bisect_split`` (one collective per iteration); the sorted scan
+and the chunked bisection run on the hinges gathered from every rank.
 """
 
 from __future__ import annotations
@@ -20,13 +26,20 @@ from .linalg import resolve_dtype
 
 
 def exact_linesearch(dx, dy, Qdx, Adx, df, y, w, mu, l, u,
-                     method: str = "sort", root_dtype=None):
+                     method: str = "sort", root_dtype=None, comm=None):
     """The exact stepsize tau (B,) along (dx, dy).  ``Qdx`` already holds
     the sigma*dx term when proximal; the root is found in ``root_dtype``
-    (None = the state dtype) and returned in the state dtype."""
+    (None = the state dtype) and returned in the state dtype.  ``comm``:
+    the dual vectors hold the local rows of a problem split over ranks."""
     mu_dy_half = 0.5 * mu * dy
-    eta = 0.5 * (dot(dx, Qdx) + dot(dy, mu_dy_half))
-    beta = 0.5 * (dot(dx, df) + dot(y, mu_dy_half))
+    if comm is None:
+        eta = 0.5 * (dot(dx, Qdx) + dot(dy, mu_dy_half))
+        beta = 0.5 * (dot(dx, df) + dot(y, mu_dy_half))
+    else:
+        # eta and beta hold dots over the rows: one collective for both
+        dyy, yy = comm.dual_sum(dot(dy, mu_dy_half), dot(y, mu_dy_half))
+        eta = 0.5 * (comm.primal_dot(dx, Qdx) + dyy)
+        beta = 0.5 * (comm.primal_dot(dx, df) + yy)
     rs = torch.rsqrt(mu)
     d_half = (Adx - mu_dy_half) * rs            # c0 ./ sqrt(mu)
     wl = (w - l) * rs
@@ -38,7 +51,14 @@ def exact_linesearch(dx, dy, Qdx, Adx, df, y, w, mu, l, u,
     if rd != state_dt:
         eta, beta = eta.to(rd), beta.to(rd)
         delta, alpha = delta.to(rd), alpha.to(rd)
-    if method == "bisect":
+    if comm is not None and method == "bisect":
+        tau = pwa_root_bisect_split(eta, beta, delta, alpha, comm)
+    elif comm is not None:
+        # the sort and the chunked scan see every hinge: gather them
+        delta, alpha = comm.gather_rows(delta), comm.gather_rows(alpha)
+        tau = (pwa_root_bisect_chunk if method == "bisect_chunk"
+               else pwa_root)(eta, beta, delta, alpha)
+    elif method == "bisect":
         tau = pwa_root_bisect(eta, beta, delta, alpha)
     elif method == "bisect_chunk":
         tau = pwa_root_bisect_chunk(eta, beta, delta, alpha)
@@ -126,6 +146,51 @@ def pwa_root_bisect(eta, beta, delta, alpha, iters: int = 48):
         lo = torch.where(ph < 0, t, lo)
         hi = torch.where(ph >= 0, t, hi)
     a, b = coeffs(t)
+    cand = -b / torch.where(a != 0, a, one)
+    return torch.where(torch.isfinite(cand), cand, t)
+
+
+def pwa_root_bisect_split(eta, beta, delta, alpha, comm, iters: int = 48):
+    """``pwa_root_bisect`` with the hinges split over the ranks of
+    ``comm``: every sum over hinges is a local sum and an all-reduce.  The
+    same iteration, arranged for few collectives: the 40 doublings of the
+    upper bracket take phi at the 40 points 4^k in one reduction (phi is
+    increasing, so the bracket is the first point where phi >= 0, as the
+    sequential growth finds it), and phi(t) and the segment coefficients
+    at t share one reduction, since the next iteration's coefficients are
+    taken at the same t.  51 collectives per linesearch instead of 137."""
+    one = torch.ones_like(eta)
+    dd, da = delta * delta, delta * alpha
+
+    def sums(t):
+        """(phi(t), a(t), b(t)) with the hinge sums reduced."""
+        z = delta * t[:, None] - alpha
+        act = z > 0
+        h, a, b = comm.dual_sum(
+            torch.sum(delta * torch.clamp(z, min=0.0), dim=-1),
+            torch.sum(torch.where(act, dd, 0.0), dim=-1),
+            torch.sum(torch.where(act, da, 0.0), dim=-1))
+        return eta * t + beta + h, eta + a, beta - b
+
+    powers = torch.pow(torch.tensor(4.0, dtype=eta.dtype, device=eta.device),
+                       torch.arange(40, dtype=eta.dtype, device=eta.device))
+    hinge = torch.clamp(delta[:, None, :] * powers[:, None] - alpha[:, None, :],
+                        min=0.0)
+    h, = comm.dual_sum(torch.matmul(hinge, delta[:, :, None])[..., 0])
+    below = eta[:, None] * powers + beta[:, None] + h < 0       # (B, 40)
+    # hi = 4^(first k with phi(4^k) >= 0), 4^40 when there is none
+    hi = torch.pow(torch.full_like(eta, 4.0),
+                   torch.cumprod(below.to(torch.int32), dim=-1).sum(dim=-1)
+                   .to(eta.dtype))
+    lo = torch.zeros_like(eta)
+    t = 0.5 * hi
+    _, a, b = sums(t)
+    for _ in range(iters):
+        cand = -b / torch.where(a != 0, a, one)
+        t = torch.where((cand > lo) & (cand < hi), cand, 0.5 * (lo + hi))
+        ph, a, b = sums(t)
+        lo = torch.where(ph < 0, t, lo)
+        hi = torch.where(ph >= 0, t, hi)
     cand = -b / torch.where(a != 0, a, one)
     return torch.where(torch.isfinite(cand), cand, t)
 

@@ -21,9 +21,9 @@ independent scenario blocks.  The solve goes
   4. back-substitution x_s = K_ss^-1 (r_s - B_s x0).
 
 Every array is batch-first: K00 (B, n0, n0), Kss (B, S, ns, ns), Bs
-(B, S, ns, n0), r0 (B, n0), rs (B, S, ns).  The JAX package's
-``arrow_solve_sharded`` (scenarios sharded over a device mesh) waits for
-the distributed slice (ROADMAP.md Queue 1 item 6).
+(B, S, ns, n0), r0 (B, n0), rs (B, S, ns).  ``arrow_solve_sharded``
+splits the scenarios over the ranks of a process group: steps 1 and 4
+are local, step 2 is one all-reduce, step 3 runs on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed
 
 from .linalg import cholesky_solve
 
@@ -72,10 +73,27 @@ def arrow_solve(system: ArrowSystem, r0, rs, refine_steps: int = 0):
 
 
 def arrow_solve_sharded(system: ArrowSystem, r0, rs, mesh, axis="scenario"):
-    """The scenario-sharded arrow solve: not ported yet."""
-    raise NotImplementedError(
-        "arrow_solve_sharded (scenarios sharded over devices) waits for "
-        "ROADMAP.md Queue 1 item 6 (distributed)")
+    """The arrow solve with the scenarios split over the ranks of ``mesh``
+    (a 1-D ``DeviceMesh``; ``axis`` names its axis, as in the JAX
+    package).  Every rank calls it.  ``Kss``, ``Bs`` and ``rs`` are
+    DTensors split along the scenario axis (axis 1; ``Shard(1)``) or this
+    rank's own scenarios (the same number on every rank); K00 and r0 are
+    replicated.  Per rank the scenario factors and their Schur
+    contributions; one all-reduce (SUM) of the contributions to S0 and its
+    right-hand side; the n0 x n0 solve on every rank (the same x0
+    everywhere); local back-substitution.  Returns (x0 (B, n0), a plain
+    tensor, and xs, a DTensor (B, S, ns) split along the scenarios)."""
+    from ..parallel.dtensor import (dtensor_from_local, group_of, is_dtensor,
+                                    to_local)
+
+    n_global = system.Kss.shape[1] if is_dtensor(system.Kss) else None
+    K00, Kss, Bs, r0, rs = (to_local(a) for a in (*system, r0, rs))
+    SB, Sr, KinvB, Kinvr = local_contribution(Kss, Bs, rs)
+    part = torch.cat([SB.sum(dim=1), Sr.sum(dim=1)[..., None]], dim=-1)
+    torch.distributed.all_reduce(part, group=group_of(mesh))
+    x0 = cholesky_solve(K00 - part[..., :-1], r0 - part[..., -1])
+    xs = Kinvr - (KinvB @ x0[:, None, :, None])[..., 0]
+    return x0, dtensor_from_local(xs, mesh, dim=1, n_global=n_global)
 
 
 def arrow_to_dense(system: ArrowSystem):

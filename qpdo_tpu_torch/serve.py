@@ -1,6 +1,6 @@
 """Micro-batching solver service: the serving runtime.
 
-Port of ``qpdo_tpu/serve.py`` without its mesh.  The reference's serving
+Port of ``qpdo_tpu/serve.py``.  The reference's serving
 story is a process-global workspace behind a MEX singleton
 (interfaces/mex/qpdo_mex.c:22); here a service turns a stream of QP
 requests into lock-step batched solves on the device of the requests'
@@ -25,11 +25,22 @@ tensors:
   totals, batch count and mean size, queue depth, latency) for
   monitoring.
 
-One worker on one device.  Sharding micro-batches over several devices
-(the JAX package's ``mesh``) comes with the distributed path
-(ROADMAP.md Queue 1).  PyTorch's TF32 switches are process-wide: a batch
-whose settings ask for another ``matmul_precision`` than a solve running
-at the same time in another thread switches it for both.
+One worker on one device, or, with ``mesh`` (a 1-D ``DeviceMesh``),
+one service in front of every rank of a process group.  JAX's service is
+one process in front of a multi-device mesh; ``torch.distributed`` runs
+one process per device, so every rank constructs the service: rank 0
+owns the queue and the micro-batching, pads each batch group to a
+multiple of the mesh size by repeating its last problem (as the JAX
+package does), and broadcasts it; every rank solves its block of the
+group on its service thread, and rank 0 gathers the results and resolves
+the Futures.  The other ranks run a follower loop on their service
+thread until ``shutdown()`` on rank 0 broadcasts the stop; ``submit`` is
+for rank 0 only.  Each rank issues its collectives from its service
+thread alone, so they come in the same order on every rank.
+
+PyTorch's TF32 switches are process-wide: a batch whose settings ask for
+another ``matmul_precision`` than a solve running at the same time in
+another thread switches it for both.
 """
 
 from __future__ import annotations
@@ -43,8 +54,10 @@ from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .parallel.batch import _solve_batch
+from .parallel.dtensor import group_of
 from .types import Problem, Result, Settings, tree_map
 from .utils.padding import _round_up, pad_problem, unpad_result
 
@@ -91,12 +104,12 @@ class SolverService:
                  n_mult: int = 32, m_mult: int = 32,
                  max_pending: int = 1024, max_sessions: int = 1024,
                  mesh=None, mesh_axis: str = "batch"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SolverService(mesh=...): sharded dispatch over several "
-                "devices is not ported yet; it comes with the distributed "
-                "path (ROADMAP.md Queue 1, item 6)")
         self._settings = settings or Settings()
+        # a 1-D DeviceMesh: micro-batches are padded to a multiple of its
+        # size and split over its ranks (see the module docstring)
+        self._mesh = mesh
+        self._group = None if mesh is None else group_of(mesh)
+        self._rank = 0 if mesh is None else dist.get_rank(self._group)
         # per-session warm-start cache (LRU-bounded): the serving analogue
         # of the reference's long-lived MEX workspace whose iterate
         # survives across solves (qpdo_mex.c:22 + qpdo_warm_start,
@@ -119,7 +132,9 @@ class SolverService:
                        "batches": 0, "batched_requests": 0,
                        "latency_sum_s": 0.0, "by_status": {},
                        "session_warm_hits": 0}
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker = threading.Thread(
+            target=self._run if self._rank == 0 else self._follow,
+            daemon=True)
         self._worker.start()
 
     # -- client API --------------------------------------------------------
@@ -142,6 +157,9 @@ class SolverService:
         cache on completion.  Sequential use (wait for each result before
         the next submit) gets the hits; concurrent same-session submits
         are safe but may cold-start."""
+        if self._rank != 0:
+            raise RuntimeError("SolverService over a mesh: submit on rank 0; "
+                               f"this is rank {self._rank}")
         if problem.Q.dim() != 3 or problem.Q.shape[0] != 1:
             raise ValueError("submit takes one problem (a batch of one, as "
                              f"make_problem builds it), got Q "
@@ -178,7 +196,8 @@ class SolverService:
 
     def shutdown(self, wait: bool = True) -> None:
         """Stop admitting requests; the worker serves what was admitted
-        and ends."""
+        and ends.  Over a mesh, rank 0's worker then stops the followers;
+        on another rank this waits (with ``wait``) for that stop."""
         with self._lock:
             self._stop.set()
         if wait:
@@ -240,6 +259,8 @@ class SolverService:
             if batch:
                 self._dispatch(batch)
             if stop:
+                if self._mesh is not None:
+                    self._broadcast_header(None)
                 return
 
     def _dispatch(self, batch: Sequence[_Request]) -> None:
@@ -273,7 +294,11 @@ class SolverService:
         problems = tree_map(lambda *xs: torch.cat(xs), *padded)
         x0 = _warm_rows(reqs, "x0", n_pad, problems.q) if warm_x else None
         y0 = _warm_rows(reqs, "y0", m_pad, problems.q) if warm_y else None
-        res = _solve_batch(problems, override or self._settings, x0, y0)
+        settings = override or self._settings
+        if self._mesh is None:
+            res = _solve_batch(problems, settings, x0, y0)
+        else:
+            res = self._solve_split(problems, settings, x0, y0)
         statuses = res.info.status      # reads the batch on the host
         now = time.perf_counter()
         with self._lock:
@@ -294,3 +319,87 @@ class SolverService:
                     while len(self._sessions) > self._max_sessions:
                         self._sessions.popitem(last=False)
             req.future.set_result(out)
+
+    # -- over a mesh: rank 0 leads, every rank solves its block -------------
+
+    def _src(self) -> int:
+        return dist.get_global_rank(self._group, 0)
+
+    def _broadcast_header(self, header):
+        box = [header]
+        dist.broadcast_object_list(box, src=self._src(), group=self._group)
+        return box[0]
+
+    def _solve_split(self, problems: Problem, settings: Settings, x0, y0):
+        """Rank 0's side: pad the group to a multiple of the mesh size by
+        repeating its last problem, broadcast it, solve this rank's block,
+        gather every block.  Returns the results of the unpadded group."""
+        size = dist.get_world_size(self._group)
+        B = problems.q.shape[0]
+        pad = (-B) % size
+
+        def padded(a):
+            return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])]) if pad \
+                else a
+
+        tensors = [padded(a) for a in (*problems, x0, y0) if a is not None]
+        self._broadcast_header(dict(
+            settings=settings, warm=(x0 is not None, y0 is not None),
+            shapes=[tuple(t.shape) for t in tensors], dtype=problems.q.dtype))
+        res = self._solve_block(tensors, settings, x0 is not None,
+                                y0 is not None)
+        return tree_map(lambda a: a[:B], res)
+
+    def _follow(self) -> None:
+        """The service thread of a rank other than 0: take part in every
+        group rank 0 broadcasts, until it broadcasts the stop (None)."""
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if self._mesh.device_type == "cuda" else torch.device("cpu"))
+        while True:
+            header = self._broadcast_header(None)
+            if header is None:
+                return
+            tensors = [torch.empty(shape, dtype=header["dtype"], device=device)
+                       for shape in header["shapes"]]
+            try:
+                self._solve_block(tensors, header["settings"],
+                                  *header["warm"])
+            except Exception:  # noqa: BLE001 - rank 0 sets it on the Futures
+                pass
+
+    def _solve_block(self, tensors, settings: Settings, warm_x: bool,
+                     warm_y: bool) -> Result:
+        """Every rank: receive the group (rank 0 sends it), solve this
+        rank's block, and gather the blocks of every rank.  A rank whose
+        solve raised reports it through one all-reduce, so that no rank
+        waits for a block that never comes; rank 0 then raises (the
+        group's Futures get the error)."""
+        g, src = self._group, self._src()
+        for t in tensors:
+            dist.broadcast(t, src=src, group=g)
+        size, rank = dist.get_world_size(g), dist.get_rank(g)
+        per = tensors[0].shape[0] // size
+        block = [t[rank * per:(rank + 1) * per] for t in tensors]
+        problems = Problem(*block[:6])
+        x0 = block[6] if warm_x else None
+        y0 = block[6 + warm_x] if warm_y else None
+        res, error = None, None
+        try:
+            res = _solve_batch(problems, settings, x0, y0)
+        except Exception as e:  # noqa: BLE001 - reported to every rank
+            error = e
+        failed = torch.tensor([float(error is not None)],
+                              device=tensors[0].device)
+        dist.all_reduce(failed, op=dist.ReduceOp.MAX, group=g)
+        if float(failed) > 0:
+            if error is not None:
+                raise error
+            raise RuntimeError("SolverService: the solve failed on another "
+                               "rank of the mesh")
+
+        def gather(a):
+            parts = [torch.empty_like(a) for _ in range(size)]
+            dist.all_gather(parts, a.contiguous(), group=g)
+            return torch.cat(parts)
+
+        return tree_map(gather, res)

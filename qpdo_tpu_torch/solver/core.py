@@ -20,6 +20,15 @@ the mixed-GEMM phase, the fused right-hand side, reduced-precision
 cache-feeding matvecs, the stacked [Q; A] product, the polish) are gated
 on the operator's methods exactly where the JAX core gates them with
 ``hasattr``.
+
+Distributed operators (``operators.RowShardedOperator``, the
+scenario-sharded ``BlockAngularOperator``) hold only their rank's part of
+the split axis, and carry a comm (``parallel/comm.py``) in ``op.comm``.
+Every reduction of the core over dual entries (and over primal entries,
+where those are split too) goes through ``_global_max``, ``_dual_sum``
+and ``_pdot``, which reduce the local partial results over the ranks; on
+an operator without a comm (``op.comm`` None) they change nothing, bit
+for bit.  The JAX package gets the same reductions from GSPMD.
 """
 
 from __future__ import annotations
@@ -94,6 +103,26 @@ def _scalar(op, value, dtype=None):
                       device=op.device)
 
 
+def _global_max(op, dual=(), primal=()):
+    """Per-problem maxima over dual and primal entries: the partial maxima
+    ``dual`` and ``primal`` made global over the ranks of a distributed
+    operator (one collective), returned in that order; as given
+    otherwise."""
+    if op.comm is None:
+        return tuple(dual) + tuple(primal)
+    return op.comm.max(dual, primal)
+
+
+def _dual_sum(op, *ts):
+    """Per-problem sums over dual entries, global over the ranks."""
+    return ts if op.comm is None else op.comm.dual_sum(*ts)
+
+
+def _pdot(op, a, b):
+    """The per-problem inner product of two primal vectors."""
+    return dot(a, b) if op.comm is None else op.comm.primal_dot(a, b)
+
+
 def mixed_mode(settings: Settings, op) -> bool:
     """The anchored mixed-GEMM phase: A-GEMMs in a dtype below the state's,
     on operators with the anchored hard-row products (core.py:232-234)."""
@@ -135,7 +164,7 @@ def init_state(op, settings: Settings, x0=None, y0=None) -> SolverState:
 
     # initialize_mu: Birgin-Martinez balancing (iteration.c:98-109)
     Qx_eff = Qx + sigma[:, None] * x if settings.proximal else Qx
-    f = 0.5 * dot(x, Qx_eff) + dot(op.q, x)
+    f = 0.5 * _pdot(op, x, Qx_eff) + _pdot(op, op.q, x)
     fmax = torch.clamp(torch.abs(f), min=1.0)
     mu = torch.clamp(
         0.1 * torch.clamp(0.5 * torch.square(Ax - torch.clamp(Ax, op.l, op.u)),
@@ -147,7 +176,9 @@ def init_state(op, settings: Settings, x0=None, y0=None) -> SolverState:
         # justifies near-final penalties, a bad one keeps scale 1.
         y_term = (op.E * op.E / op.cost[:, None]) * y
         rp0 = norm_inf(op.Einv * (Ax - torch.clamp(Ax + y_term, op.l, op.u)))
-        rd0 = norm_inf(op.Dinv * (Qx + op.q + Aty)) / op.cost
+        rd0 = norm_inf(op.Dinv * (Qx + op.q + Aty))
+        rp0, rd0 = _global_max(op, (rp0,), (rd0,))
+        rd0 = rd0 / op.cost
         quality = torch.maximum(rp0, rd0)
         mu_scale = torch.clamp(quality, settings.warm_mu_scale_min, 1.0)
         mu = torch.clamp(mu * mu_scale[:, None], min=settings.mu_min)
@@ -182,9 +213,9 @@ def outer_residuals(op, y, Qx, Ax, Aty):
     cinv = op.cinv[:, None]
     res_prim = Ax - torch.clamp(Ax + (op.E * op.E * cinv) * y, op.l, op.u)
     res_dual = Qx + op.q + Aty
-    rp = norm_inf(op.Einv * res_prim)
-    rd = norm_inf(op.Dinv * res_dual) * op.cinv
-    return res_prim, res_dual, rp, rd
+    rp, rd = _global_max(op, (norm_inf(op.Einv * res_prim),),
+                         (norm_inf(op.Dinv * res_dual),))
+    return res_prim, res_dual, rp, rd * op.cinv
 
 
 def residual_outputs(s: SolverState):
@@ -218,6 +249,9 @@ def step(op, settings: Settings, s: SolverState,
          s.Ax, s.y, s.mu, s.ybar, op.l, op.u, op.E, op.Einv,
          s.Qx, op.q, s.Aty, s.x, s.xbar, op.Dinv, sig_eff, cinv,
          out=residual_out)
+    (res_prim_norm, res_prim_in_norm, res_dual_norm,
+     res_dual_in_norm) = _global_max(op, (res_prim_norm, res_prim_in_norm),
+                                     (res_dual_norm, res_dual_in_norm))
     if settings.pallas_residuals and isinstance(op, DenseOperator):
         # the fused branch of core.py:205-207: df recovered from the kernel
         df = res_dual_in - s.Aty
@@ -321,7 +355,8 @@ def step(op, settings: Settings, s: SolverState,
     else:
         Atdy = op.Atmv(dy)
     tau = exact_linesearch(dx, dy, Qdx, Adx, df, s.y, w, s.mu, op.l, op.u,
-                           settings.linesearch, settings.linesearch_dtype)
+                           settings.linesearch, settings.linesearch_dtype,
+                           comm=op.comm)
     if settings.newton_full_step and op.newton_exact(settings):
         # full-step acceptance from the cache increments alone
         Ax_t = s.Ax + Adx
@@ -334,8 +369,9 @@ def step(op, settings: Settings, s: SolverState,
         else:
             df_t = Qx_t + op.q
         rdi_t = df_t + (s.Aty + Atdy)
-        rpi_t_norm = norm_inf(op.Einv * rpi_t)
-        rdi_t_norm = norm_inf(op.Dinv * rdi_t) * cinv
+        rpi_t_norm, rdi_t_norm = _global_max(
+            op, (norm_inf(op.Einv * rpi_t),), (norm_inf(op.Dinv * rdi_t),))
+        rdi_t_norm = rdi_t_norm * cinv
         cur = torch.maximum(res_prim_in_norm, res_dual_in_norm)
         trial = torch.maximum(rpi_t_norm, rdi_t_norm)
         take_full = (trial <= settings.full_step_gamma * cur) & (tau < one)
@@ -358,6 +394,10 @@ def step(op, settings: Settings, s: SolverState,
         oob = torch.sum(op.u * torch.clamp(dy_c, min=0.0) * op.u_finite
                         + op.l * torch.clamp(dy_c, max=0.0) * op.l_finite,
                         dim=-1)
+        norm_Ddx = norm_inf(op.D * dx_c)
+        norm_Edy, Atdy_c_norm, norm_Ddx = _global_max(
+            op, (norm_Edy,), (Atdy_c_norm, norm_Ddx))
+        oob, = _dual_sum(op, oob)
         eps_pinf = settings.eps_prim_inf
         prim_inf = ((norm_Edy > 0)
                     & (Atdy_c_norm <= eps_pinf * norm_Edy)
@@ -365,7 +405,6 @@ def step(op, settings: Settings, s: SolverState,
         prim_inf &= can_check & (settings.eps_prim_inf > 0)
 
         # dual infeasibility via dx = x - xbar (termination.c:156-216)
-        norm_Ddx = norm_inf(op.D * dx_c)
         thr = settings.eps_dual_inf * norm_Ddx
         scaled = op.Einv * Adx_c_raw
         rows_bad = ((op.u_finite * (scaled >= col(thr)) > 0)
@@ -373,9 +412,13 @@ def step(op, settings: Settings, s: SolverState,
         if settings.proximal:
             # quirk preserved from termination.c:200-202: - sigma*tau*dx
             Qdx_c = Qdx_c - col(sigma * s.tau) * dx_c
+        Qdx_c_norm = norm_inf(Qdx_c)
+        if op.comm is not None:
+            bad, Qdx_c_norm = op.comm.max((rows_bad.to(dt),), (Qdx_c_norm,))
+            rows_bad = bad > 0
         dual_inf = ((norm_Ddx > 0) & ~rows_bad
-                    & (norm_inf(Qdx_c) <= cost * thr)
-                    & (dot(op.q, dx_c) <= -cost * thr))
+                    & (Qdx_c_norm <= cost * thr)
+                    & (_pdot(op, op.q, dx_c) <= -cost * thr))
         dual_inf &= can_check & (settings.eps_dual_inf > 0) & ~prim_inf
     else:
         prim_inf = torch.zeros_like(running)
@@ -383,7 +426,7 @@ def step(op, settings: Settings, s: SolverState,
 
     # mu update (iteration.c:127-168), gated on oter > 0 and the outer
     # primal residual still above tolerance (qpdo.c:400-402)
-    res_norm_scaled = norm_inf(res_prim)
+    res_norm_scaled, = _global_max(op, (norm_inf(res_prim),))
     do_mu = (s.oter > 0) & (res_prim_norm > eps_abs)
     abs_rp = torch.abs(res_prim)
     cond = abs_rp > torch.maximum(eps_abs, settings.theta
@@ -406,7 +449,7 @@ def step(op, settings: Settings, s: SolverState,
     if settings.accel_gamma > 0:
         ot = s.oter.to(dt)
         gk = settings.accel_gamma * ot / (ot + 3.0)
-        rp_prev_norm = norm_inf(op.Einv * s.res_prim_old)
+        rp_prev_norm, = _global_max(op, (norm_inf(op.Einv * s.res_prim_old),))
         ok = can_check & (s.oter > 0) & (res_prim_norm <= rp_prev_norm)
         gk = col(torch.where(ok, gk, torch.zeros_like(gk)))
         xbar_new = s.x + gk * (s.x - s.xbar)
@@ -422,7 +465,7 @@ def step(op, settings: Settings, s: SolverState,
 
     # ---- warmup stall guard (phase 1 only; Settings.warmup_stall_exit) ----
     if settings.stall_exit > 0:
-        prev_rp_norm = norm_inf(op.Einv * s.res_prim_old)
+        prev_rp_norm, = _global_max(op, (norm_inf(op.Einv * s.res_prim_old),))
         warmup_stalled = ((s.oter >= 2)
                           & (res_prim_norm > settings.stall_exit * prev_rp_norm)
                           & (res_prim_norm > eps_abs))
@@ -485,7 +528,7 @@ def step(op, settings: Settings, s: SolverState,
 def objective_value(op, x, Qx):
     """0.5 x'Qx + q'x, unscaled (compute_objective, iteration.c:185-221)."""
     op = as_operator(op)
-    obj = 0.5 * dot(x, Qx) + dot(op.q, x)
+    obj = 0.5 * _pdot(op, x, Qx) + _pdot(op, op.q, x)
     return obj * op.cinv + op.c
 
 

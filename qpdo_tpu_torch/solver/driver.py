@@ -22,6 +22,10 @@ problem is a ``ScaledProblem`` (the dense path) or any operator of
 ``operators.py`` (``solve_sparse`` hands in a ``SparseOperator``).  The
 JAX driver's crash snapshots and adaptive chunk sizes answer faults of
 the TPU runtime and have no counterpart.
+
+On a distributed operator (``op.comm``, the row-sharded solve) every rank
+runs this loop: the clock's verdict is all-reduced, so that every rank
+stops at the same chunk, and only the root rank prints.
 """
 
 from __future__ import annotations
@@ -51,9 +55,15 @@ def solve_driven(sp, settings: Settings, x0=None, y0=None,
                          f"batch of one problem, got {op.batch}")
     t_start = time.perf_counter() if t_start is None else t_start
     timed_out = False
+    comm = op.comm
+    show = comm is None or comm.root
 
     def past_limit():
-        return time.perf_counter() - t_start > settings.max_time
+        late = time.perf_counter() - t_start > settings.max_time
+        if comm is None:
+            return late
+        flag = torch.full((1,), float(late), dtype=op.dtype, device=op.device)
+        return bool(comm.max((flag,))[0] > 0)
 
     if settings.hybrid_warmup and op.dtype != torch.float32:
         # the float32 phase in chunks too, under the same clock
@@ -80,7 +90,9 @@ def solve_driven(sp, settings: Settings, x0=None, y0=None,
                 and int(s.iter) < settings.max_iter)
 
     if settings.verbose:
-        printing.print_header("GPU" if op.device.type == "cuda" else "CPU")
+        if show:
+            printing.print_header("GPU" if op.device.type == "cuda"
+                                  else "CPU")
         # the single-step loop bypasses run_loop's anchoring: re-anchor
         # from the host at the same cadence in the mixed-GEMM phase
         mixed = core.mixed_mode(settings, op)
@@ -92,8 +104,10 @@ def solve_driven(sp, settings: Settings, x0=None, y0=None,
                 s = core.reanchor(op, settings, s)
             it = int(prev.iter)
             if it % settings.print_interval == 0:
+                objective = float(core.objective_value(op, prev.x, prev.Qx))
+            if it % settings.print_interval == 0 and show:
                 printing.print_iteration(
-                    it, float(core.objective_value(op, prev.x, prev.Qx)),
+                    it, objective,
                     float(s.res_prim_norm), float(s.res_dual_norm),
                     float(s.res_prim_in_norm), float(s.res_dual_in_norm),
                     float(prev.tau))
@@ -114,7 +128,7 @@ def solve_driven(sp, settings: Settings, x0=None, y0=None,
     unsolved = _c.MAX_TIME_REACHED if timed_out else _c.MAX_ITER_REACHED
     res = core.finalize(op, settings, core.polish_state(op, settings, s),
                         unsolved)
-    if settings.verbose:
+    if settings.verbose and show:
         printing.print_final_message(
             int(res.info.status_val), float(res.info.res_prim_norm),
             float(res.info.res_dual_norm), settings.eps_abs,

@@ -2,7 +2,9 @@
 
 Port of ``qpdo_tpu/solver/scaling.py`` (itself the reference's
 src/scaling.c:24-91).  The fixed count of Ruiz passes is a Python loop;
-every norm is taken per problem (over its own rows or columns).
+every norm is taken per problem (over its own rows or columns).  With a
+comm (``parallel/comm.py``: the rows split over ranks, ``RowComm``) the
+column norms of A, maxima over the rows, are reduced over the ranks.
 """
 
 from __future__ import annotations
@@ -18,21 +20,27 @@ def limit_scaling(v):
     return torch.where(v < _c.MIN_SCALING, torch.ones_like(v), v)
 
 
-def ruiz_equilibrate(A, iters: int):
+def _col_max(A, comm):
+    """max_i |A_ij| per problem and column, over every rank's rows."""
+    c = torch.amax(torch.abs(A), dim=-2)
+    return c if comm is None else comm.max((c,))[0]
+
+
+def ruiz_equilibrate(A, iters: int, comm=None):
     """``iters`` Ruiz passes on A (B, m, n).  Returns (A_scaled, D, E) with
     A_scaled = diag(E) A diag(D) per problem."""
     B, m, n = A.shape
     D = torch.ones((B, n), dtype=A.dtype, device=A.device)
     E = torch.ones((B, m), dtype=A.dtype, device=A.device)
     for _ in range(iters):
-        d = torch.rsqrt(limit_scaling(torch.amax(torch.abs(A), dim=-2)))  # (B, n)
+        d = torch.rsqrt(limit_scaling(_col_max(A, comm)))               # (B, n)
         e = torch.rsqrt(limit_scaling(torch.amax(torch.abs(A), dim=-1)))  # (B, m)
         A = A * e[..., :, None] * d[..., None, :]
         D, E = D * d, E * e
     return A, D, E
 
 
-def ruiz_equilibrate_kkt(Q, A, iters: int):
+def ruiz_equilibrate_kkt(Q, A, iters: int, comm=None):
     """Ruiz passes on the full KKT structure [[Q, A'], [A, 0]] per problem.
     Returns (Q_scaled, A_scaled, D, E)."""
     B, m, n = A.shape
@@ -40,7 +48,7 @@ def ruiz_equilibrate_kkt(Q, A, iters: int):
     E = torch.ones((B, m), dtype=A.dtype, device=A.device)
     for _ in range(iters):
         colQ = torch.amax(torch.abs(Q), dim=-2)
-        colA = torch.amax(torch.abs(A), dim=-2)
+        colA = _col_max(A, comm)
         d = torch.rsqrt(limit_scaling(torch.maximum(colQ, colA)))
         e = torch.rsqrt(limit_scaling(torch.amax(torch.abs(A), dim=-1)))
         Q = Q * d[..., :, None] * d[..., None, :]
@@ -50,10 +58,11 @@ def ruiz_equilibrate_kkt(Q, A, iters: int):
 
 
 def scale_problem(problem: Problem, scaling_iters: int,
-                  ruiz_kkt: bool = False) -> ScaledProblem:
+                  ruiz_kkt: bool = False, comm=None) -> ScaledProblem:
     """Scale a batch of problems (scale_data, scaling.c:24-91).  Bounds are
     clamped to +-QPDO_INFTY first; the finite-bound masks come from the
-    clamped, unscaled bounds."""
+    clamped, unscaled bounds.  ``comm``: ``problem`` holds this rank's
+    rows of A, l and u (the row-sharded solve)."""
     dt = problem.Q.dtype
     inf = _c.QPDO_INFTY
     l = torch.clamp(problem.l.to(dt), -inf, inf)
@@ -72,9 +81,9 @@ def scale_problem(problem: Problem, scaling_iters: int,
         cost = torch.ones((B,), dtype=dt, device=q.device)
     else:
         if ruiz_kkt:
-            Q, A, D, E = ruiz_equilibrate_kkt(Q, A, scaling_iters)
+            Q, A, D, E = ruiz_equilibrate_kkt(Q, A, scaling_iters, comm)
         else:
-            A, D, E = ruiz_equilibrate(A, scaling_iters)
+            A, D, E = ruiz_equilibrate(A, scaling_iters, comm)
             Q = Q * D[..., :, None] * D[..., None, :]
         q = q * D
         cost = 1.0 / torch.clamp(torch.amax(torch.abs(q), dim=-1), min=1.0)

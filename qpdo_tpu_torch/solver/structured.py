@@ -20,6 +20,16 @@ and the results keep that leading axis: ``x`` is the pair (x0 (1, n0),
 xs (1, S, ns)), ``y`` is (1, S, ms).  The problem's arrays may be numpy
 arrays or tensors: they go to ``device`` (None: Q0's device when it is a
 tensor, else "cuda") in Q0's floating dtype.
+
+Scenario-sharded: a problem whose scenario-leading leaves (Qs, qs, T, W,
+l, u) are DTensors split along the scenarios (``Shard(0)``) over a 1-D
+``DeviceMesh`` is solved by every rank on its own scenarios, with Q0,
+q0 and c replicated (the JAX package's placement of the S axis over a
+mesh, structured.py:123).  Every rank calls the solve; the sums over the
+scenarios are all-reduced (``operators.BlockAngularOperator``,
+``parallel/comm.ScenarioComm``).  x0 comes back replicated; xs, y and
+the scenario parts of the certificates are DTensors split along the
+scenario axis (axis 1, after the batch axis of one).
 """
 
 from __future__ import annotations
@@ -67,7 +77,7 @@ def _batch_of_one(p: BlockAngularProblem, device) -> BlockAngularProblem:
 
 
 def scale_block_angular(p: BlockAngularProblem, scaling_iters: int,
-                        device=None) -> BlockAngularOperator:
+                        device=None, comm=None) -> BlockAngularOperator:
     """Ruiz equilibration + cost scaling on the block-angular form
     (structured.py:57-114 of the JAX package), as a batch of one.
 
@@ -75,7 +85,10 @@ def scale_block_angular(p: BlockAngularProblem, scaling_iters: int,
     ``scaling_iters`` passes on A = [T W] only (column norms of the x0
     block reduce over all scenarios, those of the xs blocks are
     scenario-local, row norms combine both blocks), then Q <- c D Q D,
-    q <- c D q with c = 1/max(1, ||D q||_inf), bounds <- E l/u."""
+    q <- c D q with c = 1/max(1, ||D q||_inf), bounds <- E l/u.
+    ``comm``: ``p`` holds this rank's scenarios; the maxima over the
+    scenarios are reduced over the ranks."""
+    gmax = (lambda t: t) if comm is None else (lambda t: comm.max((t,))[0])
     p = _batch_of_one(p, device)
     dt, dev = p.Q0.dtype, p.Q0.device
     Bn, S, ms, n0 = p.T.shape
@@ -94,7 +107,7 @@ def scale_block_angular(p: BlockAngularProblem, scaling_iters: int,
     if scaling_iters > 0:
         for _ in range(scaling_iters):
             aT, aW = torch.abs(T), torch.abs(W)
-            c0 = torch.amax(aT, dim=(1, 2))                  # (B, n0)
+            c0 = gmax(torch.amax(aT, dim=(1, 2)))            # (B, n0)
             cs = torch.amax(aW, dim=2)                       # (B, S, ns)
             rn = torch.maximum(torch.amax(aT, dim=3),
                                torch.amax(aW, dim=3))        # (B, S, ms)
@@ -108,7 +121,7 @@ def scale_block_angular(p: BlockAngularProblem, scaling_iters: int,
         qs = qs * Ds
         cost = 1.0 / torch.clamp(torch.maximum(
             torch.amax(torch.abs(q0), dim=1),
-            torch.amax(torch.abs(qs), dim=(1, 2))), min=1.0)
+            gmax(torch.amax(torch.abs(qs), dim=(1, 2)))), min=1.0)
         q0, qs = cost[:, None] * q0, cost[:, None, None] * qs
         Q0 = cost[:, None, None] * (Q0 * D0[:, :, None] * D0[:, None, :])
         Qs = cost[:, None, None, None] * (Qs * Ds[..., :, None]
@@ -118,7 +131,7 @@ def scale_block_angular(p: BlockAngularProblem, scaling_iters: int,
     D = torch.cat([D0, Ds.flatten(1)], dim=1)
     E = E.flatten(1)
     return BlockAngularOperator(
-        Q0=Q0, Qs=Qs, T=T, W=W, q=torch.cat([q0, qs.flatten(1)], dim=1),
+        comm=comm, Q0=Q0, Qs=Qs, T=T, W=W, q=torch.cat([q0, qs.flatten(1)], dim=1),
         l=l.flatten(1), u=u.flatten(1), c=p.c, D=D, Dinv=1.0 / D, E=E,
         Einv=1.0 / E, cost=cost, cinv=1.0 / cost,
         l_finite=l_finite.flatten(1), u_finite=u_finite.flatten(1))
@@ -133,21 +146,39 @@ def solve_block_angular_result(p: BlockAngularProblem,
     (certificates NaN-filled by status, per the MEX contract).  ``warm``
     is an (x0, xs, y) triple of unscaled points (with or without the
     batch axis)."""
+    from ..parallel.dtensor import dtensor_from_local, is_dtensor, to_local
+
     settings = settings or Settings()
+    mesh = next((a.device_mesh for a in p if is_dtensor(a)), None)
+    comm = None
+    if mesh is not None:
+        from ..parallel.comm import ScenarioComm
+        from ..parallel.dtensor import group_of
+
+        S_global = p.T.shape[0]
+        p = BlockAngularProblem(*(to_local(a) for a in p))
+        comm = ScenarioComm(group_of(mesh), p.T.shape[-1])
     with matmul_precision(settings.matmul_precision):
-        op = scale_block_angular(p, settings.scaling, device)
+        op = scale_block_angular(p, settings.scaling, device, comm)
     x0w = y0w = None
     if warm is not None:
-        flat = lambda v: torch.as_tensor(v, dtype=op.dtype,
+        flat = lambda v: torch.as_tensor(to_local(v), dtype=op.dtype,
                                          device=op.device).reshape(1, -1)
         x0w = torch.cat([flat(warm[0]), flat(warm[1])], dim=1)
         y0w = flat(warm[2])
     res = solve_scaled(op, settings, x0w, y0w)
     S, ms, _, _ = op.shapes
-    dual = lambda v: v.reshape(v.shape[0], S, ms)
-    return Result(x=op.split_primal(res.x), y=dual(res.y),
+    split = ((lambda v: v) if mesh is None else
+             (lambda v: dtensor_from_local(v, mesh, dim=1, n_global=S_global)))
+    dual = lambda v: split(v.reshape(v.shape[0], S, ms))
+
+    def primal(v):
+        v0, vs = op.split_primal(v)
+        return v0, split(vs)
+
+    return Result(x=primal(res.x), y=dual(res.y),
                   prim_inf_cert=dual(res.prim_inf_cert),
-                  dual_inf_cert=op.split_primal(res.dual_inf_cert),
+                  dual_inf_cert=primal(res.dual_inf_cert),
                   info=res.info)
 
 

@@ -38,6 +38,22 @@ def test_every_name_of_the_jax_package_is_exported():
             assert getattr(pt, name) == getattr(qt, name), name
 
 
+def test_every_name_of_the_jax_parallel_package_is_exported():
+    """Every public name of ``qpdo_tpu.parallel`` exists in
+    ``qpdo_tpu_torch.parallel`` (the distributed paths, ROADMAP.md Queue 1
+    item 6)."""
+    import qpdo_tpu.parallel as jp
+
+    import qpdo_tpu_torch.parallel as tp
+
+    names = ["solve_batch", "solve_batch_sharded", "shard_problems",
+             "solve_row_sharded", "multihost"]
+    assert all(hasattr(jp, n) for n in names)
+    assert [n for n in names if not hasattr(tp, n)] == []
+    for n in ("initialize", "global_mesh", "distribute_batch"):
+        assert hasattr(jp.multihost, n) and hasattr(tp.multihost, n)
+
+
 @pytest.mark.parametrize("device_type,kkt_dtype,fused", [
     ("cpu", torch.float64, True), ("cuda", torch.float32, True),
     ("cuda", torch.float64, False),

@@ -57,6 +57,17 @@ def test_arrow_to_dense_equals_jax():
 
 
 def test_arrow_solve_sharded_waits_for_the_distributed_slice():
-    _, system, r0, rs = _batch((0,), S=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tschur.arrow_solve_sharded(system, r0, rs, mesh=None)
+    """The sharded solve, ported since (tests/test_torch_schur_sharded.py
+    holds it over 2 and 4 ranks against JAX): over a mesh of one rank it
+    is ``arrow_solve``, and xs is a DTensor of the whole system."""
+    from torch_dist import one_rank_mesh
+
+    _, system, r0, rs = _batch((0, 1), S=2)
+    x0_ref, xs_ref = tschur.arrow_solve(system, r0, rs)
+    with one_rank_mesh("scenario") as mesh:
+        x0, xs = tschur.arrow_solve_sharded(system, r0, rs, mesh)
+        assert xs.shape == xs_ref.shape
+        np.testing.assert_allclose(x0.numpy(), x0_ref.numpy(), rtol=0,
+                                   atol=1e-14)
+        np.testing.assert_allclose(xs.to_local().numpy(), xs_ref.numpy(),
+                                   rtol=0, atol=1e-14)

@@ -1,6 +1,6 @@
 """The PyTorch port's ``SolverService``, second half: priorities, the
 counters, shutdown, the per-session warm-start cache, the errors a batch
-meets, cancelled requests, the refused mesh, and a stress test of the
+meets, cancelled requests, a mesh of one rank, and a stress test of the
 shared counters.  On
 the CPU in float64; tests/test_torch_serve.py has the first half.
 """
@@ -149,8 +149,22 @@ def test_a_cancelled_request_is_skipped():
 
 
 def test_a_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        SolverService(mesh=object())
+    """The mesh, no longer refused (tests/test_torch_serve_mesh.py holds
+    it over 2 ranks against JAX): a service over a mesh of one rank
+    serves a request as the plain service does."""
+    from torch_dist import one_rank_mesh
+
+    Q, q, A, l, u = random_qp(6, 5, seed=3)
+    ref = pt.solve(_problem(Q, q, A, l, u))
+    with one_rank_mesh("batch") as mesh:
+        svc = SolverService(max_batch=4, max_wait_ms=5, mesh=mesh)
+        try:
+            out = svc.submit(_problem(Q, q, A, l, u)).result(timeout=300)
+        finally:
+            svc.shutdown()
+    assert out.info.status == ["solved"]
+    np.testing.assert_allclose(out.x.numpy(), ref.x.numpy(), rtol=0,
+                               atol=1e-12)
 
 
 def test_counters_under_contention():

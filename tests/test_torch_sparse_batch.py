@@ -15,7 +15,7 @@ problems take exactly the steps they take alone:
 * a fleet of mixed sizes (padded, then the union) gives the JAX package's
   ``solve_sparse_heterogeneous`` statuses and iterations, x within 1e-8,
   each result a batch of one at its own sizes;
-* ``mesh=`` raises NotImplementedError.
+* ``mesh=`` over a mesh of one rank changes nothing.
 """
 
 import numpy as np
@@ -147,7 +147,18 @@ def test_heterogeneous_fleet_matches_jax():
 
 
 def test_mesh_waits_for_the_distributed_slice():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pt.solve_sparse_batch(_fleet(2), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pt.solve_sparse_heterogeneous(_fleet(2), mesh=object(), device="cpu")
+    """``mesh=``, ported since (tests/test_torch_serve_mesh.py holds it
+    over 2 ranks against JAX): over a mesh of one rank a fleet is solved
+    as without it, its leaves DTensors of the whole fleet."""
+    from torch_dist import one_rank_mesh
+
+    fleet = _fleet(2)
+    ref = pt.solve_sparse_batch(fleet, device="cpu")
+    with one_rank_mesh("batch") as mesh:
+        res = pt.solve_sparse_batch(fleet, mesh=mesh, device="cpu")
+        het = pt.solve_sparse_heterogeneous(fleet, mesh=mesh, device="cpu")
+        assert res.x.shape == ref.x.shape
+        np.testing.assert_array_equal(res.x.to_local().numpy(),
+                                      ref.x.numpy())
+    for b, one in enumerate(het):
+        np.testing.assert_array_equal(one.x[0].numpy(), ref.x[b].numpy())
