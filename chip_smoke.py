@@ -53,6 +53,12 @@ Phases (any failure raises and exits non-zero):
    and the other problems are untouched.  Both kernels also at n=200, the
    shared-memory route that serves 128 < n <= 220 (239), against their
    plain versions, same tolerance.
+   6b. Both kernels on their global-memory route (n above 220 and 239:
+   K in global memory, formed by kernel 1) at ``LARGE_KKT_SHAPES`` (B=8,
+   n=256 and 512, m = 1.5 n, and phase 7b's shape) against their plain
+   versions and the composition, same tolerance, the route's launches
+   counted; kernel 1 at (8, 768, 512) against its plain version; times
+   beside the library route and the bound.
 7. The second path: the same family through ``solve_batch(...,
    compact=True)`` with ``kkt_dtype="float32", mu_min=1e-7,
    refine_steps=2, pallas_kkt=True, pallas_residuals=True`` (float64
@@ -60,6 +66,13 @@ Phases (any failure raises and exits non-zero):
    launches per step.  Same gate as phase 4, the fused kernel launched,
    results on the card; then a warm-started re-solve (q perturbed from a
    seed, x0/y0 the previous solution), same gate; 3 timed runs.
+   7b. The same settings on the bench family at B=64, n=300, m=450: every
+   Newton solve kernel 3's global route (its launches counted and
+   required), every problem SOLVED within the oracle at 1.1e-6.
+   7c. One QP of n=200, m=50,000 (phase 16b's family) through ``solve``
+   with those settings less ``pallas_kkt``: every K formed by kernel 1 in
+   float32 with its rows split over blocks (counted and required), SOLVED
+   within the oracle at 1.1e-6.
 8. The stateful entry point: ``QPDO().setup(...)`` of one n=100, m=150
    problem with no device argument (so the card), solve, warm_start,
    update_q, update_bounds, solve; results on the card, same oracle.
@@ -109,7 +122,8 @@ Phases (any failure raises and exits non-zero):
    problem; ``Settings(pallas_kkt=True)`` at kkt_dtype None on 16 problems
    of the family: no launch of the fused kernel and results bit for bit
    those of ``pallas_kkt=False``; n=221 with ``pallas_kkt`` and a float32
-   KKT refused (ValueError naming the limit) before any launch.
+   KKT (once refused at setup) solved through kernel 3's global route,
+   within the oracle.
 14. Files, the command line, the utilities and the sparse path (PHASE14_*
    sizes): (a) ``main([...])`` of ``python -m qpdo_tpu_torch`` in-process
    on HS21 with its objective constant, HS35, HS51 and bench problem 0
@@ -194,20 +208,28 @@ Phases (any failure raises and exits non-zero):
    problems, over the mesh: SOLVED within the oracle; (f) 64 requests
    through ``SolverService(mesh=)`` submitted on rank 0: SOLVED within the
    oracle, x within ``SERVE_X_BAND`` of direct solves.  Kernels 1 and 2
-   must launch on the batch-sharded and row-sharded paths, and are held
-   against their plain versions at every shape the children gave them;
-   kernel 1 is timed at the row-sharded shape beside its library route.
+   must launch on the batch-sharded and row-sharded paths (kernel 1 with
+   its rows split on the row-sharded ones), and are held against their
+   plain versions at every shape the children gave them; kernel 1 is
+   timed at B=1, n=200 and m = 50,000 (a rank's rows) and 100,000 (the
+   unsharded solve's), in both dtypes, with its number of row chunks S,
+   beside its library route and bound, against its plain version, and
+   bit for bit against a second call.
 
 The line before the last is a JSON object with one entry per kernel and
-dtype (formation and residuals in both dtypes), with its launches on the
-path that runs it first and on each path (phase 15 adds "cr",
+dtype (formation and residuals in both dtypes), and one per added route
+("formation_split" in both dtypes, "kkt_solve_global",
+"chol_solve_global"), with its launches on the path that runs it first
+and on each path (phases 6b, 7b and 7c add "composition_large",
+"pallas_kkt_n300" and "tall_f32"; phase 15 adds "cr",
 "continuation", "structured", "sparse_layer" and
 "sparse_applications"; phase 16 adds "batch_sharded_compact_gloo",
 "batch_sharded_gloo", "distribute_batch_gloo", "row_sharded_m100000",
 "row_sharded_m100001", "structured_sharded", "sparse_fleet_mesh",
 "serve_mesh", "batch_sharded_compact_nccl", "batch_sharded_nccl" and
-"distribute_batch_nccl", summed over the ranks; the float64 formation
-entry also holds "row_sharded_shape"); the last line is
+"distribute_batch_nccl", summed over the ranks; the "formation_split"
+entries hold phase 16's timings of kernel 1 under "shapes"); the last
+line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -234,12 +256,19 @@ F32, F64 = torch.float32, torch.float64
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 and float64 FLOP/s
 # outside the tensor cores, and the bytes of its L2 cache
 PEAK_BYTES, PEAK_F32, PEAK_F64 = 3.35e12, 67e12, 34e12
+# float64 on the tensor cores (mma .f64), which kernel 1's split route uses
+PEAK_F64_TENSOR = 67e12
 L2_BYTES = 50e6
 # the kernels against their plain versions (phases 2, 3 and 14): the
 # formation's error relative to max|K|, and the residual tolerance that the
 # bit-for-bit check replaced (printed when it fails)
 FORMATION_TOL = {F32: 1e-5, F64: 1e-12}
 RESIDUAL_RTOL = {F32: 1e-6, F64: 1e-13}
+# kernels 3 and 4 on their global-memory route (phase 6b): (B, m, n) at
+# n = 256 and 512 with m = 1.5 n, and the shape phase 7b's solve gives them
+LARGE_KKT_SHAPES = ((8, 384, 256), (8, 768, 512), (64, 450, 300))
+# phase 7b: the pallas_kkt path above the shared-memory route (B, n, m)
+PHASE7B = (64, 300, 450)
 
 
 def parse_args():
@@ -316,6 +345,11 @@ def time_ms(fn, reps=100, warmup=10):
     return start.elapsed_time(end) / reps
 
 
+def timed(fn, reps):
+    """``time_ms`` with a warm-up of a tenth of the calls (at least 2)."""
+    return time_ms(fn, reps=reps, warmup=max(2, reps // 10))
+
+
 def device_ms(*fns, calls=100, replays=5):
     """Mean time per call on the card with the host out of the way: ``calls``
     calls, taking the functions ``fns`` in turn, are captured into one CUDA
@@ -351,6 +385,36 @@ def formation_work(b, m, n):
     symmetric, so its product is one multiply-add per row of A and entry
     on or above the diagonal, m * n * (n + 1) operations a problem."""
     return b * m * n + b * m + 2 * b * n * n + b, b * m * n * (n + 1)
+
+
+def kkt_work(name, b, m, n):
+    """Kernel 3's or 4's work at (b, m, n), in float32: the elements it
+    must move (each input read once, dx written once) and its operations
+    (the symmetric product, the Jacobi scale, the n^3/3 factor, two n^2
+    substitutions)."""
+    if name.startswith("kkt_solve"):
+        return (b * n * n + b * m * n + b * m + b + 2 * b * n,
+                b * (m * n * (n + 1) + n ** 3 // 3 + 4 * n * n))
+    return b * n * n + 2 * b * n, b * (n ** 3 // 3 + 2 * n * n)
+
+
+def kkt_library_route(ff, tl, Q, A, w, sigma, rhs):
+    """Kernel 3's function by the formation kernel and torch.linalg
+    (``jacobi_cholesky``, two triangular solves)."""
+    def run():
+        K = ff.fused_formation(A, w, Q, sigma)
+        chol, di = tl.jacobi_cholesky(K)
+        return tl._prescaled_tri_solver(chol, di, F32)(rhs)
+    return run
+
+
+def chol_library_route(Khat, bhat):
+    """Kernel 4's function by ``cholesky_ex`` and two triangular solves."""
+    def run():
+        chol = torch.linalg.cholesky_ex(Khat)[0]
+        z = torch.linalg.solve_triangular(chol, bhat[..., None], upper=False)
+        return torch.linalg.solve_triangular(chol.mT, z, upper=True)
+    return run
 
 
 def bound_ms(nbytes, flops, peak_flops=PEAK_F32):
@@ -668,8 +732,16 @@ def main() -> int:
     require_launched(path_launches["composition"], "the composition path",
                      ("formation", F32), ("chol_solve", F32))
 
+    # ---- phase 6b: kernels 3 and 4 on their global-memory route ----
+    errs6b, times6b, path_launches["composition_large"] = phase6b(
+        ff, fr, fk, tl, card)
+
     # ---- phase 7: the second path, every Newton solve the fused kernel ----
     path_launches["pallas_kkt"] = phase7(pt, ff, fr, fk, d, card)
+    # ---- phase 7b: the same above the shared-memory route (n=300) ----
+    path_launches["pallas_kkt_n300"] = phase7b(pt, ff, fr, fk, card)
+    # ---- phase 7c: one tall QP, kernel 1 in float32 with its rows split --
+    path_launches["tall_f32"] = phase7c(pt, ff, fr, fk, card)
 
     # ---- phase 8: the stateful entry point, on the card by default ----
     phase8(pt, fk)
@@ -705,8 +777,8 @@ def main() -> int:
 
     # ---- phase 16: the distributed paths, in child processes ----
     t0 = time.perf_counter()
-    launches16, errs16, row_shape = phase16(pt, ff, fr, fk, card,
-                                            phase4_ref, seed)
+    launches16, errs16, tall = phase16(pt, ff, fr, fk, card, phase4_ref,
+                                       seed)
     path_launches.update(launches16)
     print(f"phase 16 took {time.perf_counter() - t0:.1f} s, on {card}")
     shapes_checked = collections.defaultdict(list)
@@ -724,7 +796,17 @@ def main() -> int:
                   ("residuals", F32): "bench_ns",
                   ("residuals", F64): "bench_ns",
                   ("kkt_solve", F32): "pallas_kkt",
-                  ("chol_solve", F32): "composition"}
+                  ("chol_solve", F32): "composition",
+                  ("formation_split", F32): "tall_f32",
+                  ("formation_split", F64): "row_sharded_m100000",
+                  ("kkt_solve_global", F32): "pallas_kkt_n300",
+                  ("chol_solve_global", F32): "composition_large"}
+    rows += route_rows(times6b, tall)
+    for key, err in errs6b.items():
+        max_err[key] = max(max_err.get(key, 0.0), err)
+    for t in tall:
+        key = ("formation_split", getattr(torch, t["dtype"]))
+        max_err[key] = max(max_err.get(key, 0.0), t["max_abs_err"])
     for r in rows:
         key = (r["name"], getattr(torch, r["dtype"]))
         r["launches"] = path_launches[first_path[key]][key]
@@ -734,8 +816,6 @@ def main() -> int:
                                  for path, counts in path_launches.items()}
         if key == ("residuals", F64):
             r["sparse_shape"] = sparse_shape
-        if key == ("formation", F64):
-            r["row_sharded_shape"] = row_shape
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -768,21 +848,10 @@ def phase5(ff, fr, fk, tl):
 
     Q, A, w, sigma, rhs = kkt_inputs()
     Khat, bhat, dinv = scaled_system(fk, ff, Q, A, w, sigma, rhs)
-
-    def kkt_library():
-        K = ff.fused_formation(A, w, Q, sigma)
-        chol, di = tl.jacobi_cholesky(K)
-        return tl._prescaled_tri_solver(chol, di, F32)(rhs)
-
-    def chol_library():
-        chol = torch.linalg.cholesky_ex(Khat)[0]
-        z = torch.linalg.solve_triangular(chol, bhat[..., None], upper=False)
-        return torch.linalg.solve_triangular(chol.mT, z, upper=True)
+    kkt_library = kkt_library_route(ff, tl, Q, A, w, sigma, rhs)
+    chol_library = chol_library_route(Khat, bhat)
 
     # each side is timed twice, in turns, and the smaller time kept
-    def timed(fn, reps):
-        return time_ms(fn, reps=reps, warmup=max(2, reps // 10))
-
     for name, kernel, plain, library, single in (
             ("kkt_solve", lambda: fk.fused_kkt_solve(Q, A, w, sigma, rhs),
              lambda: fk.reference_kkt_solve(Q, A, w, sigma, rhs),
@@ -812,15 +881,8 @@ def phase5(ff, fr, fk, tl):
             return residual_bound(b, M, N, dtype)
         size = torch.empty((), dtype=dtype).element_size()
         peak = PEAK_F32 if dtype == F32 else PEAK_F64
-        nbytes, ops = {
-            "formation": formation_work(b, M, N),
-            # the symmetric product, Jacobi scale, n^3/3 factor, two n^2
-            # substitutions
-            "kkt_solve": (b * N * N + b * M * N + b * M + b + 2 * b * N,
-                          b * (M * N * (N + 1) + N ** 3 // 3 + 4 * N * N)),
-            "chol_solve": (b * N * N + 2 * b * N,
-                           b * (N ** 3 // 3 + 2 * N * N)),
-        }[name]
+        nbytes, ops = (formation_work(b, M, N) if name == "formation"
+                       else kkt_work(name, b, M, N))
         return bound_ms(size * nbytes, ops, peak) + (size * nbytes,)
 
     meta = {
@@ -867,6 +929,51 @@ def phase5(ff, fr, fk, tl):
         if len(sizes) > 1:
             row["batches"] = sizes
         rows.append(row)
+    return rows
+
+
+def route_rows(times6b, tall):
+    """Rows of the kernels line for the routes added to kernels 1, 3 and 4:
+    kernel 1 with its rows split (headline: B=1, m=50,000, n=200, a rank's
+    rows of the row-sharded solve), kernel 3's global route (headline:
+    phase 7b's shape) and kernel 4's (headline: n=512, the composition
+    path); every timed shape under "shapes"."""
+    rows = []
+    for t in tall:
+        if t["m"] != TALL_FORMATION_M[0]:
+            continue
+        rows.append({
+            "name": "formation_split", "dtype": t["dtype"], "route": "cuda",
+            "source": "qpdo_tpu_torch/csrc/formation.cu",
+            "replaces": "qpdo_tpu/ops/pallas_formation.py:24",
+            "launches": 0, "max_abs_err": 0.0, "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "library_route_ms": t["library_ms"],
+            "library_route_device_ms": t["library_device_ms"],
+            "library_route": "torch.matmul + elementwise",
+            "splits": t["splits"],
+            "shapes": [u for u in tall if u["dtype"] == t["dtype"]]})
+    meta = {"kkt_solve_global": ("qpdo_tpu/ops/pallas_kkt.py:40",
+                                 PHASE7B[0], PHASE7B[2], PHASE7B[1],
+                                 "formation kernel + torch.linalg.cholesky_ex"
+                                 " + 2 solve_triangular"),
+            "chol_solve_global": ("qpdo_tpu/ops/pallas_kkt.py:209",
+                                  8, 768, 512,
+                                  "torch.linalg.cholesky_ex + 2 "
+                                  "solve_triangular")}
+    for name, (replaces, b, m, n, library) in meta.items():
+        head = times6b[(name, (b, m, n))]
+        rows.append({
+            "name": name, "dtype": "float32", "route": "cuda",
+            "source": "qpdo_tpu_torch/csrc/kkt_solve_large.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+            **{k: head[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "library_route_ms",
+                                    "library_route_device_ms")},
+            "library_route": library,
+            "shapes": [t for (nm, _), t in times6b.items() if nm == name]})
     return rows
 
 
@@ -957,8 +1064,9 @@ def pallas_kkt_settings(pt):
 def reset_counts(*modules):
     for mod in modules:
         for fn in vars(mod).values():
-            if callable(fn) and hasattr(fn, "launches"):
-                fn.launches.clear()
+            for counter in ("launches", "split_launches", "routes"):
+                if callable(fn) and hasattr(fn, counter):
+                    getattr(fn, counter).clear()
 
 
 def launch_counts(ff, fr, fk):
@@ -970,6 +1078,14 @@ def launch_counts(ff, fr, fk):
             counts[(name, dtype)] = fn.launches[dtype]
     counts[("kkt_solve", F32)] = fk.fused_kkt_solve.launches[F32]
     counts[("chol_solve", F32)] = fk.chol_solve_stacked.launches[F32]
+    # the routes added for few problems with many rows (kernel 1) and for
+    # n above the shared-memory route (kernels 3 and 4)
+    for dtype in (F32, F64):
+        counts[("formation_split", dtype)] = \
+            ff.fused_formation.split_launches[dtype]
+    counts[("kkt_solve_global", F32)] = fk.fused_kkt_solve.routes["global"]
+    counts[("chol_solve_global", F32)] = \
+        fk.chol_solve_stacked.routes["global"]
     return counts
 
 
@@ -1027,6 +1143,141 @@ def phase7(pt, ff, fr, fk, d, card):
           f"{B / np.mean(times):.2f}), solve times "
           f"{[round(t, 4) for t in times]} s, mean iterations "
           f"{res.info.iterations.float().mean().item():.2f}, on {card}")
+    return counts
+
+
+def phase6b(ff, fr, fk, tl, card):
+    """Kernels 3 and 4 on their global-memory route, at LARGE_KKT_SHAPES:
+    each against its plain version (phase 6's tolerance), the composition
+    formation kernel -> scale -> kernel 4 -> unscale against kernel 3, and
+    times beside the library route and the bound.  Returns the max abs
+    errors by (route name, dtype), the times by (route name, shape), and the
+    launches of the composition at n = 512 (the path that runs kernel 4's
+    global route; no solver calls kernel 4)."""
+    tol = 2e-5
+    errs = {("kkt_solve_global", F32): 0.0, ("chol_solve_global", F32): 0.0}
+    times, composition = {}, None
+
+    for shape in LARGE_KKT_SHAPES:
+        b, m, n = shape
+        Q, A, w, sigma, rhs = kkt_inputs(seed=n, shape=shape)
+        reset_counts(ff, fr, fk)
+        Khat, bhat, dinv = scaled_system(fk, ff, Q, A, w, sigma, rhs)
+        x = fk.chol_solve_stacked(Khat, bhat)
+        torch.cuda.synchronize()
+        if n == 512:
+            composition = launch_counts(ff, fr, fk)
+            require_launched(composition, "phase 6b composition",
+                             ("formation", F32), ("chol_solve_global", F32))
+            # kernel 1 at this shape, against its plain version
+            err, rel = check_formation(ff, F32, FORMATION_TOL[F32], b, m, n)
+            errs[("formation", F32)] = err
+            print(f"phase 6b: formation float32 at B={b} m={m} n={n}: error "
+                  f"relative to max|K| {rel:.3e} (tol {FORMATION_TOL[F32]})")
+        dx = fk.fused_kkt_solve(Q, A, w, sigma, rhs)
+        torch.cuda.synchronize()
+        routes = (fk.fused_kkt_solve.routes["global"],
+                  fk.chol_solve_stacked.routes["global"])
+        if routes != (1, 1):
+            raise AssertionError(f"phase 6b: n={n}: global route launches "
+                                 f"{routes}, not (1, 1)")
+        ref = fk.reference_kkt_solve(Q, A, w, sigma, rhs)
+        xref = fk.reference_chol_solve(Khat, bhat)
+        for name, got, want in (("kkt_solve_global", dx, ref),
+                                ("chol_solve_global", x, xref)):
+            errs[(name, F32)] = max(errs[(name, F32)],
+                                    (got - want).abs().max().item())
+        for what, r in (("kkt_solve vs plain", rel_err(dx, ref)),
+                        ("chol_solve vs plain", rel_err(x, xref)),
+                        ("formation -> scale -> chol_solve -> unscale vs "
+                         "kkt_solve", rel_err(x * dinv, dx))):
+            print(f"phase 6b: n={n} (global route), B={b}, m={m}: {what}: "
+                  f"max error relative to max|dx| {r:.3e} (tol {tol})")
+            if not (r <= tol):
+                raise AssertionError(f"phase 6b: n={n}: {what}: {r:.3e} > "
+                                     f"{tol}")
+        for name, kernel, plain, library, single in (
+                ("kkt_solve_global",
+                 lambda: fk.fused_kkt_solve(Q, A, w, sigma, rhs),
+                 lambda: fk.reference_kkt_solve(Q, A, w, sigma, rhs),
+                 kkt_library_route(ff, tl, Q, A, w, sigma, rhs), None),
+                ("chol_solve_global", lambda: fk.chol_solve_stacked(Khat, bhat),
+                 lambda: fk.reference_chol_solve(Khat, bhat),
+                 chol_library_route(Khat, bhat),
+                 lambda: torch.linalg.solve(Khat, bhat))):
+            k1, l1 = timed(kernel, 20), timed(library, 20)
+            l2, k2 = timed(library, 20), timed(kernel, 20)
+            elems, ops = kkt_work(name, b, m, n)
+            bms, by = bound_ms(4 * elems, ops, PEAK_F32)
+            r = times[(name, shape)] = dict(
+                B=b, m=m, n=n, ms=min(k1, k2),
+                device_ms=device_ms(kernel, calls=20, replays=3),
+                plain_ms=timed(plain, 2), library_route_ms=min(l1, l2),
+                library_route_device_ms=device_ms(library, calls=20,
+                                                  replays=3),
+                library_ms=None if single is None else timed(single, 20),
+                bound_ms=bms, bound_by=by)
+            print(f"phase 6b: {name} float32 at B={b} m={m} n={n}: kernel "
+                  f"{r['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), on the card alone "
+                  f"{r['device_ms']:.4f} ms; plain version {r['plain_ms']:.2f}"
+                  f" ms; library route {r['library_route_ms']:.4f} ms, on the "
+                  f"card alone {r['library_route_device_ms']:.4f} ms"
+                  + ("" if single is None else
+                     f"; torch.linalg.solve {r['library_ms']:.4f} ms")
+                  + f"; bound {bms:.5f} ms (by {by}), on {card}", flush=True)
+    return errs, times, composition
+
+
+def phase7b(pt, ff, fr, fk, card):
+    """The pallas_kkt path above the shared-memory route: the bench family
+    at PHASE7B (B=64, n=300, m=450) with phase 7's settings, every Newton
+    solve kernel 3's global route.  Returns the launches of the solve."""
+    from qpdo_tpu_torch.ops import linalg
+
+    b, n, m = PHASE7B
+    d = bench_problems(b, n, m, seed=11)
+    settings = pallas_kkt_settings(pt)
+    route = linalg.fused_kkt_kernel_route(settings, n, DEVICE, F64)
+    if route != "global":
+        raise AssertionError(f"phase 7b: n={n} takes the {route} route")
+    problems = pt.Problem(**{k: torch.as_tensor(v, device=DEVICE)
+                             for k, v in d.items()})
+    reset_counts(ff, fr, fk)
+    t0 = time.perf_counter()
+    res = pt.solve_batch(problems, settings, compact=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(ff, fr, fk)
+    print(f"phase 7b: B={b} n={n} m={m}, kernel 3's {route} route: first "
+          f"solve {wall:.2f} s, kernel launches {printable(counts)}, on "
+          f"{card}")
+    require_launched(counts, "phase 7b", ("kkt_solve", F32),
+                     ("kkt_solve_global", F32), ("residuals", F64))
+    check_solved(pt, d, res, "phase 7b (n=300, global route)")
+    return counts
+
+
+def phase7c(pt, ff, fr, fk, card):
+    """One QP with many rows (``random_qp(200, 50,000)``, phase 16b's
+    family at a rank's rows) through ``solve`` with phase 7's settings
+    without ``pallas_kkt``: the float32 chol route, every K formed by
+    kernel 1 in float32 with its rows split over blocks.  Returns the
+    launches of the solve."""
+    Q, q, A, l, u = random_qp(PHASE16_ROW_N, TALL_FORMATION_M[0], seed=0)
+    problem = pt.make_problem(Q, q, A, l, u)
+    settings = pt.Settings(kkt_dtype="float32", mu_min=1e-7, refine_steps=2)
+    reset_counts(ff, fr, fk)
+    t0 = time.perf_counter()
+    res = pt.solve(problem, settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(ff, fr, fk)
+    print(f"phase 7c: solve n={Q.shape[0]} m={A.shape[0]} (float32 KKT): "
+          f"{wall:.2f} s, kernel launches {printable(counts)}, on {card}")
+    require_launched(counts, "phase 7c", ("formation", F32),
+                     ("formation_split", F32), ("residuals", F64))
+    d = dict(Q=Q[None], q=q[None], A=A[None], l=l[None], u=u[None])
+    check_solved(pt, d, res, "phase 7c (n=200, m=50,000)")
     return counts
 
 
@@ -1535,19 +1786,19 @@ def phase13(pt, ff, fr, fk, d, card):
     if kkt != 0 or not same:
         raise AssertionError("phase 13: pallas_kkt at a float64 KKT dtype")
 
-    # too large for the fused kernel: refused before any launch
-    big = numpy_problems(pt, bench_problems(2, 221, 40, seed=13), DEVICE)
-    before = launch_counts(ff, fr, fk)
-    try:
-        pt.solve_batch(big, pt.Settings(pallas_kkt=True, kkt_dtype="float32"))
-    except ValueError as e:
-        message = str(e)
-    else:
-        raise AssertionError("phase 13: n=221 with pallas_kkt was not refused")
-    if "220" not in message or launch_counts(ff, fr, fk) != before:
-        raise AssertionError(f"phase 13: n=221: {message}")
-    print(f"phase 13: n=221, pallas_kkt, kkt_dtype float32: refused before "
-          f"any launch: {message}")
+    # one past the shared-memory route of the fused kernel (once refused
+    # at setup): solved through its global route
+    d221 = bench_problems(2, 221, 332, seed=13)
+    big = numpy_problems(pt, d221, DEVICE)
+    before = fk.fused_kkt_solve.routes["global"]
+    res = pt.solve_batch(big, pallas_kkt_settings(pt))
+    torch.cuda.synchronize()
+    launched = fk.fused_kkt_solve.routes["global"] - before
+    print(f"phase 13: n=221, pallas_kkt, kkt_dtype float32: {launched} "
+          "launches of kernel 3's global route")
+    if launched <= 0:
+        raise AssertionError("phase 13: n=221 did not take the global route")
+    check_solved(pt, d221, res, "phase 13 (n=221, pallas_kkt)")
     return counts
 
 
@@ -2486,6 +2737,9 @@ def flat_tensors(tree):
 # ---------------------------------------------------------------------------
 
 PHASE16_ROW_N, PHASE16_ROW_M = 200, (100_000, 100_001)
+# kernel 1 at B=1, n=200: a rank's rows of the m=100,000 row-sharded solve,
+# and the unsharded solve's
+TALL_FORMATION_M = (50_000, 100_000)
 # phase 14e's fleet of one pattern at n=1,000, cut from 64 to 16 problems
 PHASE16_FLEET_N, PHASE16_FLEET_B = 1_000, 16
 PHASE16_SERVE_REQUESTS = 64
@@ -2603,8 +2857,8 @@ def phase16(pt, ff, fr, fk, card, phase4_ref, seed):
     never joins a process group): 2 ranks over gloo on the one card (NCCL
     refuses two ranks on one GPU) and 1 rank over NCCL.  Returns the
     launches by path (summed over the ranks), the kernels' errors at the
-    shapes the children gave them, and kernel 1's times at the
-    row-sharded shape."""
+    shapes the children gave them, and kernel 1's times at the tall
+    shapes (``tall_formation``)."""
     from pathlib import Path
 
     out_dir = Path(__file__).resolve().parent / "build" / "phase16"
@@ -2629,26 +2883,61 @@ def phase16(pt, ff, fr, fk, card, phase4_ref, seed):
         print(f"phase 16: {path}: kernel launches over the ranks "
               f"{printable(counts)}", flush=True)
     errs = check_path_shapes(ff, fr, shapes, "phase 16")
-    # kernel 1 at the row-sharded shape, beside its library route
-    m_local = PHASE16_ROW_M[0] // 2
-    A, w, Q, sigma = formation_inputs(F64, b=1, m=m_local, n=PHASE16_ROW_N)
-    kernel = lambda: ff.fused_formation(A, w, Q, sigma)
-    library = lambda: ff.reference_formation(A, w, Q, sigma)
+    return launches, errs, tall_formation(ff, card)
+
+
+def tall_formation(ff, card):
+    """Kernel 1 at B=1, n=200 and m in TALL_FORMATION_M (the row-sharded
+    solve's local rows, and the unsharded solve's), in both dtypes, its
+    rows split over blocks: the number of chunks S, the error against the
+    plain version, the same bits on a second call, and times beside the
+    library route (``torch.matmul`` + elementwise, the plain version) and
+    the bound (float64 at the FP64 tensor cores' peak, which the split
+    route runs on).  Returns one dict per shape and dtype."""
+    from qpdo_tpu_torch.ops import fused_formation
+
     n = PHASE16_ROW_N
-    elems, ops = formation_work(1, m_local, n)
-    bms, by = bound_ms(8 * elems, ops, PEAK_F64)
-    row = dict(B=1, m=m_local, n=n, ms=time_ms(kernel, reps=20, warmup=3),
-               device_ms=device_ms(kernel, calls=10, replays=3),
-               library_ms=time_ms(library, reps=20, warmup=3),
-               library_device_ms=device_ms(library, calls=10, replays=3),
-               bound_ms=bms, bound_by=by)
-    print(f"phase 16: formation float64 at the row-sharded shape B=1 "
-          f"m={m_local} n={n}: kernel {row['ms']:.4f} ms as called, "
-          f"{row['device_ms']:.4f} ms on the card; library route "
-          f"(torch.matmul + elementwise) {row['library_ms']:.4f} / "
-          f"{row['library_device_ms']:.4f} ms; bound {bms:.4f} ms "
-          f"({by}), on {card}", flush=True)
-    return launches, errs, row
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for dtype in (F32, F64):
+        for m in TALL_FORMATION_M:
+            A, w, Q, sigma = formation_inputs(dtype, b=1, m=m, n=n)
+            kernel = lambda: ff.fused_formation(A, w, Q, sigma)
+            library = lambda: ff.reference_formation(A, w, Q, sigma)
+            K, K2, ref = kernel(), kernel(), library()
+            torch.cuda.synchronize()
+            err = (K - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            same = torch.equal(K, K2)
+            elems, ops = formation_work(1, m, n)
+            size = torch.empty((), dtype=dtype).element_size()
+            # float64 splits run on the FP64 tensor cores: their peak
+            peak = PEAK_F32 if dtype == F32 else PEAK_F64_TENSOR
+            bms, by = bound_ms(size * elems, ops, peak)
+            row = dict(dtype=str(dtype).replace("torch.", ""), B=1, m=m, n=n,
+                       splits=fused_formation.formation_splits(1, m, n, sms),
+                       ms=time_ms(kernel, reps=20, warmup=3),
+                       device_ms=device_ms(kernel, calls=10, replays=3),
+                       library_ms=time_ms(library, reps=20, warmup=3),
+                       library_device_ms=device_ms(library, calls=10,
+                                                   replays=3),
+                       bound_ms=bms, bound_by=by,
+                       bound_peak_tflops=peak / 1e12, max_abs_err=err,
+                       rel_err=rel, same_bits=same)
+            rows.append(row)
+            print(f"phase 16: formation {dtype} at B=1 m={m} n={n}, rows "
+                  f"split into S={row['splits']} chunks: kernel "
+                  f"{row['ms']:.4f} ms as called, {row['device_ms']:.4f} ms "
+                  f"on the card; library route (torch.matmul + elementwise) "
+                  f"{row['library_ms']:.4f} / {row['library_device_ms']:.4f} "
+                  f"ms; bound {bms:.4f} ms ({by} at {peak / 1e12:.0f} "
+                  f"TFLOP/s); error relative to max|K| "
+                  f"{rel:.3e} (tol {FORMATION_TOL[dtype]}), a second call "
+                  f"{'bit-identical' if same else 'DIFFERENT'}, on {card}",
+                  flush=True)
+            if not (rel <= FORMATION_TOL[dtype] and same and row["splits"] > 1):
+                raise AssertionError(f"phase 16: formation {dtype} at m={m}")
+    return rows
 
 
 def phase16_child(backend, seed) -> int:
@@ -2837,7 +3126,7 @@ def phase16b(pt, mesh, rank, world, tag, path, say, report):
         Q, q, A, l, u = random_qp(n, m, seed=0)
         p = pt.make_problem(Q, q, A, l, u)
         with path(f"row_sharded_m{m}", ("formation", F64),
-                  ("residuals", F64)):
+                  ("formation_split", F64), ("residuals", F64)):
             (res, m_orig), wall = timed_solve(
                 lambda: solve_row_sharded(p, pt.Settings(), mesh=mesh))
         report["times"][f"row_sharded_m{m}_s"] = wall

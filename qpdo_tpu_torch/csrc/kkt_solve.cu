@@ -80,7 +80,12 @@
 // For 128 < n <= 220 (239 for chol_solve) K does not fit the registers of
 // one block: the shared-memory route keeps Khat in dynamic shared memory
 // with an odd row stride and updates it there (each warp QPDO_KKT_ROWS
-// rows a pass).  The entry points choose the route from n alone.
+// rows a pass).  The entry points here choose between these two routes
+// from n alone.  Above 220 (239) one problem's K does not fit the 227 KB
+// of shared memory of a block either: the wrappers (ops/fused_kkt.py,
+// kernel_route) then take the global-memory route of kkt_solve_large.cu,
+// where kernel 1 forms K into a workspace and one block per problem
+// factors it there panel by panel, so every n is solved.
 // Every __syncthreads() is reached by all threads unconditionally.
 // max(d, 1e-30) keeps a NaN pivot NaN (fmaxf would drop it), so a failed
 // problem comes back non-finite and its neighbours are untouched.
@@ -925,14 +930,15 @@ extern "C" int qpdo_kkt_phase_clocks(long long* out) {
 }
 #endif
 
-// The largest n each kernel takes (its shared memory must fit one block).
-extern "C" int qpdo_kkt_solve_max_n() {
+// The largest n of each kernel's shared-memory route (its shared memory must
+// fit one block); above it the wrappers take kkt_solve_large.cu.
+extern "C" int qpdo_kkt_solve_shared_max_n() {
   int n = 1;
   while (kkt_shared_floats(n + 1) * sizeof(float) <= kMaxSharedBytes) ++n;
   return n;
 }
 
-extern "C" int qpdo_chol_solve_max_n() {
+extern "C" int qpdo_chol_solve_shared_max_n() {
   int n = 1;
   while (chol_shared_floats(n + 1) * sizeof(float) <= kMaxSharedBytes) ++n;
   return n;

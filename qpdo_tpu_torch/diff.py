@@ -73,7 +73,6 @@ from .ops.linalg import saddle_solve
 from .solver.core import solve_scaled
 from .solver.scaling import scale_problem
 from .types import Problem, Settings
-from .validate import validate_fused_kkt
 
 
 def _activity(A, x, y, l, u):
@@ -306,7 +305,6 @@ def qp_solve(Q, q, A, l, u, settings: Optional[Settings] = None, *,
     single = Q.dim() == 2
     if single:
         Q, q, A, l, u = Q[None], q[None], A[None], l[None], u[None]
-    validate_fused_kkt(settings, Q.shape[-1], Q.device, Q.dtype)
     x, y = _QPSolve.apply(Q, q, A, l, u, settings, float(diff_mu),
                           float(diff_sigma))
     return (x[0], y[0]) if single else (x, y)

@@ -34,7 +34,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("formation.cu", "residuals.cu", "kkt_solve.cu")
+SOURCES = ("formation.cu", "residuals.cu", "kkt_solve.cu", "kkt_solve_large.cu")
 # included by the sources
 HEADERS = ("async_copy.cuh", "phase_clocks.cuh", "shared_grant.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,16 +44,21 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # entry point qpdo_<name>_<suffix>: (pointer arguments, int arguments,
 # dtypes it exists for); the stream comes last
 _KERNELS = {
-    "formation": (5, 3, (torch.float32, torch.float64)),    # B, m, n
+    "formation": (6, 4, (torch.float32, torch.float64)),    # B, m, n, splits
     "residuals": (17, 3, (torch.float32, torch.float64)),   # B, m, n
     "kkt_solve": (6, 3, (torch.float32,)),                  # B, m, n
     "chol_solve": (3, 2, (torch.float32,)),                 # B, n
+    "kkt_solve_global": (8, 4, (torch.float32,)),           # B, m, n, splits
+    "chol_solve_global": (4, 2, (torch.float32,)),          # B, n
 }
-# The largest n of the fused KKT-solve kernel (``qpdo_kkt_solve_max_n`` in
-# csrc/kkt_solve.cu): one problem's K must fit the 227 KB of shared memory
-# one block can use.  Kept here so that a setup can refuse a larger problem
-# without building the library; a card test holds it to ``max_n``.
-KKT_SOLVE_MAX_N = 220
+# The routes of the KKT kernels by n: K in the registers of one block up
+# to REGISTER_MAX_N, in its shared memory up to the shared-memory route's
+# limit (one problem's K must fit the 227 KB a block can use:
+# ``qpdo_<name>_shared_max_n`` in csrc/kkt_solve.cu), in global memory
+# above (csrc/kkt_solve_large.cu).  Kept here so that a wrapper picks the
+# route without a query; a card test holds them to ``shared_max_n``.
+REGISTER_MAX_N = 128
+SHARED_MAX_N = {"kkt_solve": 220, "chol_solve": 239}
 # the CUDA toolkit's default install prefix
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
@@ -149,8 +154,8 @@ def _load() -> ctypes.CDLL:
                            + [ctypes.c_int] * ints + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             lib.entries[(name, dtype)] = (fn, pointers, ints)
-    for name in ("kkt_solve", "chol_solve"):
-        fn = getattr(lib, f"qpdo_{name}_max_n")
+    for name in SHARED_MAX_N:
+        fn = getattr(lib, f"qpdo_{name}_shared_max_n")
         fn.argtypes = []
         fn.restype = ctypes.c_int
     lib.qpdo_error_string.argtypes = [ctypes.c_int]
@@ -163,9 +168,10 @@ library.cache_clear = _load.cache_clear
 
 def launch(name: str, dtype: torch.dtype, tensors, sizes) -> None:
     """Launch kernel ``name`` for ``dtype`` on the current stream of the
-    CUDA device that holds ``tensors``: they become pointers, ``sizes``
-    (B, m, n; B, n for chol_solve) C ints.  The device is made current
-    only for the launch, and only where it is not already."""
+    CUDA device that holds ``tensors``: they become pointers (None a null
+    pointer: a workspace the launch does not use), ``sizes`` (the ints of
+    ``_KERNELS``) C ints.  The device is made current only for the
+    launch, and only where it is not already."""
     lib = library()
     try:
         fn, pointers, ints = lib.entries[(name, dtype)]
@@ -175,7 +181,7 @@ def launch(name: str, dtype: torch.dtype, tensors, sizes) -> None:
         raise KernelError(f"{name}: takes {pointers} tensors and {ints} sizes,"
                           f" got {len(tensors)} and {len(sizes)}")
     index = tensors[0].get_device()
-    ptrs = [t.data_ptr() for t in tensors]
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
     if index == torch.cuda.current_device():
         err = fn(*ptrs, *sizes, torch._C._cuda_getCurrentRawStream(index))
     else:
@@ -186,7 +192,8 @@ def launch(name: str, dtype: torch.dtype, tensors, sizes) -> None:
                           f"({lib.qpdo_error_string(err).decode()})")
 
 
-def max_n(name: str) -> int:
-    """The largest n that kernel ``name`` ("kkt_solve" or "chol_solve")
-    takes: one problem's matrix must fit one block's shared memory."""
-    return int(getattr(library(), f"qpdo_{name}_max_n")())
+def shared_max_n(name: str) -> int:
+    """The largest n of the shared-memory route of kernel ``name``
+    ("kkt_solve" or "chol_solve"): one problem's matrix must fit one
+    block's shared memory."""
+    return int(getattr(library(), f"qpdo_{name}_shared_max_n")())

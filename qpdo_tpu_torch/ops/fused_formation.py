@@ -8,15 +8,54 @@ CPU tensor it runs ``reference_formation``, the same function as plain
 tensor code.  ``ops/linalg.form_kkt`` calls it, so every formation of the
 dense path (the ns step, the explicit inverse and the chol Newton solve)
 goes through this one kernel.
+
+Where a few problems have many rows (B times the tile pairs of K well
+below the card's SM count), the kernel splits the rows of A into
+``formation_splits`` chunks, one block each, and a second pass adds the
+chunks' partial sums in a fixed order: two calls give the same bits.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
 from .. import kernels
+
+# rows of A a chunk of the split route walks at least: 8 stages of the
+# kernel's 32 rows, so that a block's set-up and its write of a partial
+# tile stay small beside its multiply-adds
+SPLIT_MIN_ROWS = 256
+
+
+def tile_pairs(n: int) -> int:
+    """Blocks of the unsplit kernel a problem takes: the tile pairs
+    (row tile <= column tile) of K, with the kernel's tile edge (32, 64 or
+    128: the smallest that covers n)."""
+    tile = 32 if n <= 32 else 64 if n <= 64 else 128
+    t = -(-n // tile)
+    return t * (t + 1) // 2
+
+
+def formation_splits(B: int, m: int, n: int, sms: int) -> int:
+    """The number of chunks S the kernel splits the m rows into, from the
+    shape and the card's SM count ``sms`` alone (in either dtype).
+    1 (the unsplit kernel) where the unsplit grid of B x tile pairs
+    blocks already fills the SMs once or m is too short to split; else as
+    many chunks as fill the SMs once (one wave: at B=1, n=200 on an H100
+    it beat 1.5 to 6 waves, scripts/sweep_formation_splits.py), each of at
+    least ``SPLIT_MIN_ROWS`` rows.  The kernel rounds each chunk up to
+    whole stages and may use fewer chunks (``chunk_rows`` in
+    csrc/formation.cu)."""
+    return max(1, min(sms // (B * tile_pairs(n)), m // SPLIT_MIN_ROWS))
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reference_formation(A, w, Q, sigma):
@@ -46,8 +85,9 @@ def fused_formation(A, w, Q, sigma):
     """K = A' diag(w) A + Q + sigma*I for A (B, m, n), w (B, m),
     Q (B, n, n), sigma (B,), all of one dtype (float32 or float64) on one
     device.  CUDA tensors launch the kernel (and count the launch, by
-    dtype, in the Counter ``fused_formation.launches``); CPU tensors take
-    the plain version."""
+    dtype, in the Counter ``fused_formation.launches``, and those that
+    split the rows also in ``fused_formation.split_launches``); CPU
+    tensors take the plain version."""
     B, m, n = _check(A, w, Q, sigma)
     if A.device.type == "cpu":
         return reference_formation(A, w, Q, sigma)
@@ -59,9 +99,16 @@ def fused_formation(A, w, Q, sigma):
         if not t.is_contiguous():
             raise ValueError(f"fused_formation: {name} must be contiguous")
     K = torch.empty((B, n, n), dtype=A.dtype, device=A.device)
-    kernels.launch("formation", A.dtype, (A, w, Q, sigma, K), (B, m, n))
+    splits = formation_splits(B, m, n, sm_count(A.get_device()))
+    partial = (torch.empty((B, splits, n, n), dtype=A.dtype, device=A.device)
+               if splits > 1 else None)
+    kernels.launch("formation", A.dtype, (A, w, Q, sigma, K, partial),
+                   (B, m, n, splits))
     fused_formation.launches[A.dtype] += 1
+    if splits > 1:
+        fused_formation.split_launches[A.dtype] += 1
     return K
 
 
 fused_formation.launches = collections.Counter()
+fused_formation.split_launches = collections.Counter()

@@ -5,11 +5,15 @@ Replaces the TPU kernels of ``qpdo_tpu/ops/pallas_kkt.py``:
 ``_kkt_kernel`` (l.40; entries ``pallas_kkt_solve`` l.116 and
 ``fused_kkt_solve`` l.180) and ``_stacked_chol_kernel`` (l.209, entry
 ``pallas_chol_solve_stacked`` l.299).  On a CUDA tensor each wrapper
-launches its hand-written kernel in ``qpdo_tpu_torch/csrc/kkt_solve.cu``
-(the header there says what bounds the kernels on the H100 and how the
-design answers: K is factored in the registers of one block up to n = 128
-and in its shared memory above, chosen from n alone); on a CPU tensor it
-runs the plain version below, which has the same semantics step for step:
+launches its hand-written kernel (the headers of the sources say what
+bounds the kernels on the H100 and how the design answers), on the route
+that ``kernel_route`` picks from n alone: K factored in the registers of
+one block up to n = 128 and in its shared memory up to 220 (239 for the
+Cholesky solve), both in ``qpdo_tpu_torch/csrc/kkt_solve.cu``, and in
+global memory above, formed by kernel 1 first
+(``qpdo_tpu_torch/csrc/kkt_solve_large.cu``); so any n is solved, as the
+TPU kernels' padded entries solve it.  On a CPU tensor a wrapper runs the
+plain version below, which has the same semantics step for step:
 
     K    = Q + sigma*I + A' diag(w) A
     dinv = 1/sqrt(diag K) where diag K > 0, else 1
@@ -35,6 +39,7 @@ import collections
 import torch
 
 from .. import kernels
+from . import fused_formation
 
 _TINY = 1e-30
 _F32 = torch.float32
@@ -114,19 +119,44 @@ def _check(name, tensors, shapes):
         raise ValueError(f"{name}: unsupported device {first.device}")
 
 
-def _launch(name, wrapper, tensors, sizes, n):
-    """Launch kernel ``name`` on float32 contiguous copies of ``tensors``
-    and return its (B, n) output; never the plain version."""
-    limit = kernels.max_n(name)
-    if n > limit:
-        raise kernels.KernelError(
-            f"{name}: n = {n} is above the kernel's limit of {limit}: one "
-            "problem's matrix must fit the 227 KB of shared memory a "
-            "block can use")
+def kernel_route(name: str, n: int) -> str:
+    """The route of kernel ``name`` ("kkt_solve" or "chol_solve") for n:
+    "register", "shared" or "global"."""
+    if n <= kernels.REGISTER_MAX_N:
+        return "register"
+    if n <= kernels.SHARED_MAX_N[name]:
+        return "shared"
+    return "global"
+
+
+def _launch(name, wrapper, tensors, sizes):
+    """Launch kernel ``name`` on float32 contiguous copies of ``tensors``,
+    on its route for n, and return its (B, n) output; never the plain
+    version.  The global route's workspace (K, then dinv and the
+    right-hand side of every problem) and, for the fused solve, kernel 1's
+    partial sums are allocated here."""
     args = [t.to(_F32).contiguous() for t in tensors]
-    out = torch.empty((args[0].shape[0], n), dtype=_F32, device=args[0].device)
-    kernels.launch(name, _F32, (*args, out), sizes)
+    B, n = sizes[0], sizes[-1]
+    device = args[0].device
+    out = torch.empty((B, n), dtype=_F32, device=device)
+    route = kernel_route(name, n)
+    if route != "global":
+        kernels.launch(name, _F32, (*args, out), sizes)
+    else:
+        work = torch.empty(B * n * (n + 2), dtype=_F32, device=device)
+        if name == "kkt_solve":
+            m = sizes[1]
+            splits = fused_formation.formation_splits(
+                B, m, n, fused_formation.sm_count(device.index))
+            partial = (torch.empty((B, splits, n, n), dtype=_F32, device=device)
+                       if splits > 1 else None)
+            kernels.launch("kkt_solve_global", _F32,
+                           (*args, out, work, partial), (B, m, n, splits))
+        else:
+            kernels.launch("chol_solve_global", _F32, (*args, out, work),
+                           (B, n))
     wrapper.launches[_F32] += 1
+    wrapper.routes[route] += 1
     return out
 
 
@@ -136,7 +166,8 @@ def fused_kkt_solve(Q, A, w, sigma, rhs):
     (B, m, n), w (B, m), sigma (B,), rhs (B, n) on one device; inputs are
     cast to float32 and dx (B, n) is float32.  CUDA tensors launch the
     kernel (and count the launch, by dtype, in the Counter
-    ``fused_kkt_solve.launches``); CPU tensors take the plain version."""
+    ``fused_kkt_solve.launches``, and by route in
+    ``fused_kkt_solve.routes``); CPU tensors take the plain version."""
     if A.dim() != 3:
         raise ValueError(f"fused_kkt_solve: A must be (B, m, n), got "
                          f"{tuple(A.shape)}")
@@ -146,10 +177,11 @@ def fused_kkt_solve(Q, A, w, sigma, rhs):
     if Q.device.type == "cpu":
         return reference_kkt_solve(Q, A, w, sigma, rhs)
     return _launch("kkt_solve", fused_kkt_solve, (Q, A, w, sigma, rhs),
-                   (B, m, n), n)
+                   (B, m, n))
 
 
 fused_kkt_solve.launches = collections.Counter()
+fused_kkt_solve.routes = collections.Counter()
 
 
 def chol_solve_stacked(K, rhs):
@@ -158,7 +190,8 @@ def chol_solve_stacked(K, rhs):
     read) and rhs (B, n), by the kernel's Cholesky and substitutions with
     pivots and divisors clamped at 1e-30.  Cast to float32, dx float32.
     CUDA tensors launch the kernel (counted, by dtype, in the Counter
-    ``chol_solve_stacked.launches``); CPU tensors take the plain version."""
+    ``chol_solve_stacked.launches``, and by route in
+    ``chol_solve_stacked.routes``); CPU tensors take the plain version."""
     if K.dim() != 3 or K.shape[-1] != K.shape[-2]:
         raise ValueError(f"chol_solve_stacked: K must be (B, n, n), got "
                          f"{tuple(K.shape)}")
@@ -167,7 +200,8 @@ def chol_solve_stacked(K, rhs):
            dict(K=(B, n, n), rhs=(B, n)))
     if K.device.type == "cpu":
         return reference_chol_solve(K, rhs)
-    return _launch("chol_solve", chol_solve_stacked, (K, rhs), (B, n), n)
+    return _launch("chol_solve", chol_solve_stacked, (K, rhs), (B, n))
 
 
 chol_solve_stacked.launches = collections.Counter()
+chol_solve_stacked.routes = collections.Counter()

@@ -32,7 +32,7 @@ import torch
 from .batched import all_finite, bwhere, dot, mtv, mv, norm2
 from .cg import pcg
 from .fused_formation import fused_formation
-from .fused_kkt import fused_kkt_solve
+from .fused_kkt import fused_kkt_solve, kernel_route
 
 
 def resolve_dtype(name, default: torch.dtype) -> torch.dtype:
@@ -59,6 +59,27 @@ def fused_kkt_route(device_type: str, kkt_dtype: torch.dtype) -> bool:
     reference's routing by settings, not a fallback: a kernel that fails
     to build or launch still raises."""
     return device_type == "cpu" or kkt_dtype == torch.float32
+
+
+def fused_kkt_kernel_route(settings, n: int, device, dtype: torch.dtype):
+    """The route of the fused KKT-solve kernel ("register", "shared" or
+    "global": ``fused_kkt.kernel_route``) that a dense solve of problems
+    of ``n`` variables, whose tensors are ``dtype`` on ``device``, takes
+    under ``settings``; None where the kernel does not run.  It runs for
+    the direct Newton solve (every ``kkt_solver`` but "cg") under
+    ``settings.pallas_kkt`` on a CUDA device where ``fused_kkt_route``
+    holds: in the main phase when the KKT dtype resolves to float32, and
+    in the float32 phase of ``hybrid_warmup``.  A CPU tensor runs the
+    plain version (None)."""
+    if (not settings.pallas_kkt or settings.kkt_solver == "cg"
+            or torch.device(device).type != "cuda"):
+        return None
+    kkt_dtypes = [resolve_dtype(settings.kkt_dtype, dtype)]
+    if settings.hybrid_warmup and dtype != torch.float32:
+        kkt_dtypes.append(torch.float32)  # core.warmup_settings' phase
+    if any(fused_kkt_route("cuda", k) for k in kkt_dtypes):
+        return kernel_route("kkt_solve", n)
+    return None
 
 
 def _formation(A, w, Q, sig, comm=None):

@@ -36,15 +36,12 @@ from ..solver import core
 from ..solver.scaling import scale_problem
 from ..types import Problem, Result, ScaledProblem, Settings, SolverState, tree_map
 from ..utils import debug as _debug
-from ..validate import validate_fused_kkt
 from .dtensor import dtensor_from_local, is_dtensor, local_block
 
 
 def _solve_batch(problems: Problem, settings: Settings,
                  x0=None, y0=None) -> Result:
     """Plain lock-step batch: every problem runs until the slowest ends."""
-    validate_fused_kkt(settings, problems.n, problems.Q.device,
-                       problems.Q.dtype)
     sps = scale_problem(problems, settings.scaling, settings.ruiz_kkt)
     return core.solve_scaled(sps, settings, x0, y0)
 
@@ -153,8 +150,6 @@ def _solve_batch_compact(problems: Problem, settings: Settings,
     (``core.warmup_settings``), ``core.upcast_state``, then the accurate
     phase; each phase runs ``_run_compact`` (``group``, ``K``: see
     there)."""
-    validate_fused_kkt(settings, problems.n, problems.Q.device,
-                       problems.Q.dtype)
     sps = scale_problem(problems, settings.scaling, settings.ruiz_kkt)
     if settings.hybrid_warmup and sps.data.Q.dtype != torch.float32:
         stg1 = core.warmup_settings(settings)

@@ -28,8 +28,9 @@ solve: formation, Jacobi scaling, Cholesky and both substitutions in one
 kernel, in float32 whatever ``kkt_dtype`` says
 (``ops/linalg.newton_system_solve``).  As in the JAX package, a device
 takes it only where the KKT dtype resolves to float32
-(``ops/linalg.fused_kkt_route``), and refuses at setup a problem whose n
-is above the kernel's limit (``validate.validate_fused_kkt``).
+(``ops/linalg.fused_kkt_route``), for any n: the kernel keeps K in
+registers, shared memory or global memory as n requires
+(``ops/fused_kkt.kernel_route``).
 
 Matmul precision.  ``matmul_precision`` and ``warmup_matmul_precision``
 set PyTorch's TF32 switches for the phase they govern: "highest" (the

@@ -76,7 +76,7 @@ def main() -> int:
     form = marked_library("formation.cu")
     ptr, i = ctypes.c_void_p, ctypes.c_int
     kkt.qpdo_kkt_solve_f32.argtypes = [ptr] * 6 + [i] * 3 + [ptr]
-    form.qpdo_formation_f32.argtypes = [ptr] * 5 + [i] * 3 + [ptr]
+    form.qpdo_formation_f32.argtypes = [ptr] * 6 + [i] * 4 + [ptr]
     print(smi("name,power.limit"))
     M, N = 150, 100
     for B in (1, 256):
@@ -104,7 +104,7 @@ def main() -> int:
         for _ in range(3):
             err = form.qpdo_formation_f32(
                 A.data_ptr(), w.data_ptr(), Q.data_ptr(), sigma.data_ptr(),
-                K.data_ptr(), B, M, N, stream)
+                K.data_ptr(), None, B, M, N, 1, stream)
             torch.cuda.synchronize()
             t = read_clocks(form.qpdo_formation_phase_clocks)
         assert err == 0 and torch.isfinite(K).all()

@@ -66,7 +66,7 @@ def build(nvcc: str, variant: str, index: int) -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.qpdo_kkt_solve_f32.argtypes = [ptr] * 6 + [i] * 3 + [ptr]
     lib.qpdo_chol_solve_f32.argtypes = [ptr] * 3 + [i] * 2 + [ptr]
-    lib.qpdo_formation_f32.argtypes = [ptr] * 5 + [i] * 3 + [ptr]
+    lib.qpdo_formation_f32.argtypes = [ptr] * 6 + [i] * 4 + [ptr]
     return lib
 
 
@@ -138,7 +138,7 @@ def main() -> int:
             stream = stream or torch.cuda.current_stream().cuda_stream
             check(lib.qpdo_formation_f32(
                 A.data_ptr(), w.data_ptr(), Q.data_ptr(), sigma.data_ptr(),
-                out.data_ptr(), B, M, N, stream), "formation")
+                out.data_ptr(), None, B, M, N, 1, stream), "formation")
 
         def kkt(stream=None, lib=lib, out=out3):
             stream = stream or torch.cuda.current_stream().cuda_stream

@@ -9,9 +9,11 @@ conftest:
 
 The fused KKT solve and the stacked Cholesky solve are held against their
 plain PyTorch versions on the same CUDA tensors to 1e-4 of max|dx| (the
-same recurrences summed in another order; 4e-6 found at the bench shape),
-failed problems must stay in their place, and solves through
-``Settings.pallas_kkt`` and ``QPDO`` on the card must agree with the CPU.
+same recurrences summed in another order; 4e-6 found at the bench shape)
+on each of their three routes, failed problems must stay in their place,
+and solves through ``Settings.pallas_kkt`` and ``QPDO`` on the card must
+agree with the CPU.  The formation kernel's split route is held to its
+plain version at the row-sharded shapes.
 """
 
 import numpy as np
@@ -46,17 +48,23 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-# n <= 128 takes the register route, above it the shared-memory route
+# n <= 128 takes the register route, up to 220 the shared-memory route,
+# above it the global-memory route (m = 1.5 n, the bench family's ratio)
 @pytest.mark.parametrize("B,m,n", [(8, 150, 100), (5, 45, 37), (3, 7, 3),
                                    (2, 300, 220), (4, 190, 128),
                                    (4, 190, 129), (3, 20, 16), (3, 30, 17),
-                                   (260, 150, 100)])
+                                   (260, 150, 100), (2, 332, 221),
+                                   (2, 384, 256), (2, 450, 300),
+                                   (2, 768, 512)])
 def test_kkt_solve_kernel_matches_plain(device, B, m, n):
     args = _kkt_args(device, B, m, n)
     before = fk.fused_kkt_solve.launches[torch.float32]
+    routes = fk.fused_kkt_solve.routes.copy()
     dx = fk.fused_kkt_solve(*args)
     ref = fk.reference_kkt_solve(*args)
     assert fk.fused_kkt_solve.launches[torch.float32] == before + 1
+    route = fk.kernel_route("kkt_solve", n)
+    assert fk.fused_kkt_solve.routes[route] == routes[route] + 1
     assert dx.is_cuda and dx.dtype == torch.float32 and dx.shape == (B, n)
     assert _rel(dx, ref) <= 1e-4
     # float64 inputs are cast, not refused
@@ -66,7 +74,8 @@ def test_kkt_solve_kernel_matches_plain(device, B, m, n):
 
 
 @pytest.mark.parametrize("B,n", [(8, 100), (5, 37), (2, 239), (4, 128),
-                                 (4, 129), (3, 1)])
+                                 (4, 129), (3, 1), (2, 240), (2, 256),
+                                 (2, 300), (2, 512)])
 def test_chol_solve_kernel_matches_plain_and_the_fused_solve(device, B, n):
     Q, A, w, sigma, rhs = _kkt_args(device, B, n + n // 2, n)
     K = ff.fused_formation(A, w, Q, sigma)
@@ -80,15 +89,15 @@ def test_chol_solve_kernel_matches_plain_and_the_fused_solve(device, B, n):
     assert fk.chol_solve_stacked.launches[torch.float32] == before + 1
     assert _rel(x, fk.reference_chol_solve(Khat, rhs * dinv)) <= 1e-4
     assert torch.equal(x, fk.chol_solve_stacked(Khat, rhs * dinv))
-    if n <= kernels.max_n("kkt_solve"):
-        assert _rel(x * dinv, fk.fused_kkt_solve(Q, A, w, sigma, rhs)) <= 1e-4
+    assert _rel(x * dinv, fk.fused_kkt_solve(Q, A, w, sigma, rhs)) <= 1e-4
 
 
-def test_kkt_kernels_keep_failures_in_their_problem(device):
-    Q, A, w, sigma, rhs = _kkt_args(device, 6, 60, 40)
+@pytest.mark.parametrize("n", [40, 240])
+def test_kkt_kernels_keep_failures_in_their_problem(device, n):
+    Q, A, w, sigma, rhs = _kkt_args(device, 6, 60, n)
     good = fk.fused_kkt_solve(Q, A, w, sigma, rhs)
     Q = Q.clone()
-    Q[1] = -Q[1] - 10.0 * torch.eye(40, device=device)     # indefinite
+    Q[1] = -Q[1] - 10.0 * torch.eye(n, device=device)      # indefinite
     Q[4, 7, 7] = float("nan")                             # a NaN pivot
     rhs = rhs.clone()
     rhs[2, 3] = float("nan")
@@ -102,15 +111,45 @@ def test_kkt_kernels_keep_failures_in_their_problem(device):
     assert torch.equal(dx[keep], good[keep])
 
 
-def test_kkt_kernels_refuse_a_matrix_too_large_for_a_block(device):
-    limit = kernels.max_n("kkt_solve")
-    assert limit == 220 and kernels.max_n("chol_solve") == 239
-    args = _kkt_args(device, 1, 8, limit + 1)
-    with pytest.raises(kernels.KernelError, match="shared memory"):
-        fk.fused_kkt_solve(*args)
-    with pytest.raises(kernels.KernelError, match="shared memory"):
-        fk.chol_solve_stacked(torch.eye(240, device=device)[None],
+def test_kkt_kernels_take_the_global_route_above_the_shared_limit(device):
+    """The shared-memory route's limits are the kernels' own; one past
+    them both kernels solve through global memory, counted by route."""
+    assert {name: kernels.shared_max_n(name) for name in kernels.SHARED_MAX_N} \
+        == kernels.SHARED_MAX_N == {"kkt_solve": 220, "chol_solve": 239}
+    before = (fk.fused_kkt_solve.routes["global"],
+              fk.chol_solve_stacked.routes["global"])
+    args = _kkt_args(device, 1, 8, 221)
+    dx = fk.fused_kkt_solve(*args)
+    x = fk.chol_solve_stacked(torch.eye(240, device=device)[None],
                               torch.ones(1, 240, device=device))
+    assert torch.isfinite(dx).all() and torch.equal(x, torch.ones_like(x))
+    assert (fk.fused_kkt_solve.routes["global"],
+            fk.chol_solve_stacked.routes["global"]) == (before[0] + 1,
+                                                        before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("m", [50_000, 100_000])
+def test_formation_splits_the_rows_of_a_tall_problem(device, dtype, tol, m):
+    """Kernel 1 at the row-sharded shapes (B=1, n=200): the rows split over
+    blocks (counted), within the tolerance of max|K| of the plain version,
+    and the same bits on a second call; the bench shape is not split."""
+    rng = np.random.default_rng(m)
+    n = 200
+    A, w = rng.standard_normal((1, m, n)), rng.random((1, m))
+    Mx = rng.standard_normal((1, n, n))
+    args = [torch.as_tensor(a, dtype=dtype, device=device)
+            for a in (A, w, Mx @ Mx.transpose(0, 2, 1) / n, rng.random(1))]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert ff.formation_splits(1, m, n, sms) > 1
+    assert ff.formation_splits(256, 150, 100, sms) == 1
+    before = ff.fused_formation.split_launches[dtype]
+    K = ff.fused_formation(*args)
+    assert ff.fused_formation.split_launches[dtype] == before + 1
+    ref = ff.reference_formation(*args)
+    assert ((K - ref).abs().max() / ref.abs().max()).item() <= tol
+    assert torch.equal(K, ff.fused_formation(*args))
 
 
 def test_pallas_kkt_solve_on_card_matches_cpu(device):

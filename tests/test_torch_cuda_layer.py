@@ -49,25 +49,42 @@ def _launches():
             fk.fused_kkt_solve.launches[F32])
 
 
-def test_limit_constant_is_the_kernels_limit(device):
-    assert kernels.KKT_SOLVE_MAX_N == kernels.max_n("kkt_solve") == 220
+def test_route_limits_are_the_kernels_limits(device):
+    assert kernels.SHARED_MAX_N == {
+        name: kernels.shared_max_n(name) for name in kernels.SHARED_MAX_N}
 
 
-def test_a_problem_too_large_for_the_fused_kernel_is_refused_at_setup(device):
-    n = kernels.KKT_SOLVE_MAX_N + 1
-    settings = pt.Settings(pallas_kkt=True, kkt_dtype="float32")
-    probs = _family(2, n, 30, 1, device)
+def test_a_problem_above_the_shared_route_solves_through_every_entry(device):
+    """n = 221 with pallas_kkt and a float32 KKT dtype, once refused at
+    setup: every entry point solves it through the global route of the
+    fused kernel (counted), with the plain version's statuses on the
+    CPU."""
+    n = 221
+    settings = pt.Settings(pallas_kkt=True, kkt_dtype="float32",
+                           mu_min=1e-7, refine_steps=2)
+    probs = _family(2, n, 332, 1, device)
     one = [t[0].cpu().numpy() for t in probs[:5]]
-    before = _launches()
+    cpu = pt.solve_batch(_family(2, n, 332, 1, torch.device("cpu")), settings)
+    assert cpu.info.status == ["solved"] * 2
+
+    def qpdo():
+        s = pt.QPDO()
+        s.setup(*one, settings=settings)
+        return s.solve()
+
     for call in (lambda: pt.solve_batch(probs, settings),
                  lambda: pt.solve_batch(probs, settings, compact=True),
                  lambda: pt.solve(pt.make_problem(*one, device=device),
                                   settings),
-                 lambda: pt.QPDO().setup(*one, settings=settings),
-                 lambda: pt.qp_solve(*(t[0] for t in probs[:5]), settings)):
-        with pytest.raises(ValueError, match="limit of 220"):
-            call()
-    assert _launches() == before
+                 qpdo):
+        before = fk.fused_kkt_solve.routes["global"]
+        res = call()
+        assert fk.fused_kkt_solve.routes["global"] > before
+        assert res.x.is_cuda and set(res.info.status) == {"solved"}
+    before = fk.fused_kkt_solve.routes["global"]
+    x, y = pt.qp_solve(*(t[0] for t in probs[:5]), settings)
+    assert fk.fused_kkt_solve.routes["global"] > before
+    assert x.is_cuda and torch.isfinite(x).all() and torch.isfinite(y).all()
 
 
 def test_pallas_kkt_with_a_float64_kkt_dtype_is_the_chol_route(device):

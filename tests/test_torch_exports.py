@@ -1,10 +1,11 @@
 """The PyTorch port's top-level names against the JAX package's, and the
 two rules that decide where ``Settings.pallas_kkt`` sends a Newton solve:
 the reference's routing (the fused kernel on the CPU, or on a device in
-float32) and the refusal at setup of a problem too large for the fused
-kernel on a CUDA device.  Both rules are pure functions of settings,
-sizes, device types and dtypes, so they run here without a card or a
-build; tests/test_torch_cuda_layer.py holds them on the card.
+float32) and the route the fused kernel takes on a CUDA device for n
+(registers, shared memory or global memory; any n is solved).  Both rules
+are pure functions of settings, sizes, device types and dtypes, so they
+run here without a card or a build; tests/test_torch_cuda_layer.py holds
+them on the card.
 """
 
 import pytest
@@ -14,8 +15,7 @@ import qpdo_tpu as qt
 
 import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import kernels
-from qpdo_tpu_torch.ops.linalg import fused_kkt_route
-from qpdo_tpu_torch.validate import validate_fused_kkt
+from qpdo_tpu_torch.ops.linalg import fused_kkt_kernel_route, fused_kkt_route
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # The names of ``qpdo_tpu.__all__`` still to be ported: none, since the
@@ -64,29 +64,29 @@ def test_fused_kkt_route(device_type, kkt_dtype, fused):
     assert fused_kkt_route(device_type, kkt_dtype) is fused
 
 
-LIMIT = kernels.KKT_SOLVE_MAX_N
+LIMIT = kernels.SHARED_MAX_N["kkt_solve"]
 F32, F64 = torch.float32, torch.float64
 PKKT = pt.Settings(pallas_kkt=True)
 
 
-@pytest.mark.parametrize("settings,n,device,dtype,refused", [
-    # the fused kernel on the card in float32: refused above the limit
-    (PKKT.replace(kkt_dtype="float32"), LIMIT + 1, "cuda", F64, True),
-    (PKKT.replace(kkt_dtype="float32"), LIMIT, "cuda:0", F64, False),
-    (PKKT, LIMIT + 1, "cuda", F32, True),
+@pytest.mark.parametrize("settings,n,device,dtype,route", [
+    # the fused kernel on the card in float32: global memory above the
+    # shared-memory route's limit (220), shared memory at it
+    (PKKT.replace(kkt_dtype="float32"), LIMIT + 1, "cuda", F64, "global"),
+    (PKKT.replace(kkt_dtype="float32"), LIMIT, "cuda:0", F64, "shared"),
+    (PKKT, LIMIT + 1, "cuda", F32, "global"),
     # the float32 phase of the hybrid warmup runs the fused kernel too
-    (PKKT.replace(hybrid_warmup=True), LIMIT + 1, "cuda", F64, True),
-    # a float64 KKT dtype on the card takes the chol route: no limit
-    (PKKT, LIMIT + 1, "cuda", F64, False),
+    (PKKT.replace(hybrid_warmup=True), LIMIT + 1, "cuda", F64, "global"),
+    # a float64 KKT dtype on the card takes the chol route: no kernel 3
+    (PKKT, LIMIT + 1, "cuda", F64, None),
     # the CPU runs any n through the plain version; no flag, no kernel
-    (PKKT.replace(kkt_dtype="float32"), 500, "cpu", F64, False),
-    (pt.Settings(kkt_dtype="float32"), 500, "cuda", F64, False),
+    (PKKT.replace(kkt_dtype="float32"), 500, "cpu", F64, None),
+    (pt.Settings(kkt_dtype="float32"), 500, "cuda", F64, None),
 ], ids=["f32", "at_limit", "f32_state", "warmup", "f64", "cpu", "off"])
 def test_setup_refuses_a_problem_too_large_for_the_fused_kernel(
-        settings, n, device, dtype, refused):
-    if not refused:
-        validate_fused_kkt(settings, n, torch.device(device), dtype)
-        return
-    with pytest.raises(ValueError, match=rf"n = {n} .* limit of {LIMIT}.*"
-                                         "shared memory"):
-        validate_fused_kkt(settings, n, torch.device(device), dtype)
+        settings, n, device, dtype, route):
+    """No problem is refused any more (the name is kept from when n > 220
+    was): each case takes the route of kernel 3 that n gives it (none,
+    register, shared or global)."""
+    assert fused_kkt_kernel_route(settings, n, torch.device(device),
+                                  dtype) == route

@@ -32,7 +32,9 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 STUB = Path(__file__).resolve().parent / "torch_cuda_stub"
 # the source that holds each kernel's entry points
 SOURCE_OF = {"formation": "formation.cu", "residuals": "residuals.cu",
-             "kkt_solve": "kkt_solve.cu", "chol_solve": "kkt_solve.cu"}
+             "kkt_solve": "kkt_solve.cu", "chol_solve": "kkt_solve.cu",
+             "kkt_solve_global": "kkt_solve_large.cu",
+             "chol_solve_global": "kkt_solve_large.cu"}
 
 _LAUNCH = re.compile(r"(\b[\w:]+(?:<[^<>;]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", re.S)
 _SHARED = re.compile(
@@ -90,16 +92,27 @@ def lib(tmp_path_factory):
 
 def _call(lib, name, tensors, out, sizes):
     fn = getattr(lib, f"qpdo_{name}_{kernels._SUFFIX[out.dtype]}")
-    args = [t.contiguous() for t in tensors]
-    err = fn(*[t.data_ptr() for t in args], out.data_ptr(), *sizes, None)
+    args = [None if t is None else t.contiguous() for t in tensors]
+    err = fn(*[None if t is None else t.data_ptr() for t in args],
+             out.data_ptr(), *sizes, None)
     assert err == 0
     return out
 
 
-def _formation(lib, A, w, Q, sigma):
+def _formation(lib, A, w, Q, sigma, splits=1):
+    """Kernel 1 with its rows split into ``splits`` chunks (1: unsplit);
+    the partial sums' workspace starts as NaN, as the output does."""
     B, m, n = A.shape
-    return _call(lib, "formation", (A, w, Q, sigma),
-                 torch.full((B, n, n), float("nan"), dtype=A.dtype), (B, m, n))
+    K = torch.full((B, n, n), float("nan"), dtype=A.dtype)
+    partial = (torch.full((B, splits, n, n), float("nan"), dtype=A.dtype)
+               if splits > 1 else None)
+    fn = getattr(lib, f"qpdo_formation_{kernels._SUFFIX[A.dtype]}")
+    args = [t.contiguous() for t in (A, w, Q, sigma)]
+    err = fn(*[t.data_ptr() for t in args], K.data_ptr(),
+             None if partial is None else partial.data_ptr(), B, m, n, splits,
+             None)
+    assert err == 0
+    return K
 
 
 def _kkt(lib, Q, A, w, sigma, rhs):

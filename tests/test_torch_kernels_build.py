@@ -61,8 +61,8 @@ def test_kernel_table_matches_the_c_entry_points():
             for name, (p, i, dts) in kernels._KERNELS.items() for dt in dts}
     assert found == want
     assert "kkt_solve.cu" in kernels.SOURCES
-    for name in ("kkt_solve", "chol_solve"):
-        assert f'extern "C" int qpdo_{name}_max_n()' in text
+    for name in kernels.SHARED_MAX_N:
+        assert f'extern "C" int qpdo_{name}_shared_max_n()' in text
 
 
 def _fake_nvcc(path, fail_on=None):
