@@ -61,6 +61,8 @@
 
 #include <cstddef>
 
+#include "phase_clocks.cuh"
+
 // kernel 1, formation.cu
 extern "C" {
 int qpdo_formation_f32(const void* A, const void* w, const void* Q,
@@ -120,6 +122,7 @@ factor_solve_global_kernel(const float* __restrict__ Kin,
   float* v = dinv + n;                 // b, then z, then x
   const float* rb = rhs + static_cast<size_t>(b) * n;
 
+  QPDO_LAPS_BEGIN();
   // ---- Khat = dinv K dinv + 100 eps32 I (upper triangle), or the given K ----
   if (kJacobi) {
     for (int i = tid; i < n; i += kThreads)
@@ -143,6 +146,7 @@ factor_solve_global_kernel(const float* __restrict__ Kin,
     for (int i = tid; i < n; i += kThreads) v[i] = rb[i];
   }
   __syncthreads();
+  QPDO_LAP(0);                         // Jacobi scale (or the copy of K)
 
   // ---- factor and R'z = b, a panel of kPanel rows at a time ----
   const int ty = tid / kGrid;
@@ -184,6 +188,7 @@ factor_solve_global_kernel(const float* __restrict__ Kin,
       if (lane < pc) v[k0 + lane] = zs[lane];
     }
     __syncthreads();
+    QPDO_LAP(1);                       // the diagonal block
 
     // the panel's rows right of the block, a column a thread
     for (int j = t0 + tid; j < n; j += kThreads) {
@@ -203,6 +208,7 @@ factor_solve_global_kernel(const float* __restrict__ Kin,
       v[j] = vj;
     }
     __syncthreads();
+    QPDO_LAP(2);                       // the strip right of the block
 
     // the trailing matrix, upper triangle, in tile pairs (bi <= bj)
     const int nt = (n - t0 + kTile - 1) / kTile;
@@ -257,6 +263,7 @@ factor_solve_global_kernel(const float* __restrict__ Kin,
       }
       __syncthreads();                 // the strips are free for the next pair
     }
+    QPDO_LAP(3);                       // the trailing update
   }
 
   // ---- R x = z, a panel at a time from the last ----
@@ -289,9 +296,12 @@ factor_solve_global_kernel(const float* __restrict__ Kin,
     }
     __syncthreads();
   }
+  QPDO_LAP(4);                         // the back substitution
 
   for (int i = tid; i < n; i += kThreads)
     dx[static_cast<size_t>(b) * n + i] = kJacobi ? v[i] * dinv[i] : v[i];
+  QPDO_LAP(5);
+  QPDO_LAPS_END();
 }
 
 template <bool kJacobi, bool kClampDiv>
@@ -323,6 +333,12 @@ extern "C" int qpdo_kkt_solve_global_f32(const void* Q, const void* A,
                                     static_cast<float*>(work), B, n,
                                     static_cast<cudaStream_t>(stream));
 }
+
+#ifdef QPDO_PHASE_CLOCKS
+extern "C" int qpdo_kkt_large_phase_clocks(long long* out) {
+  return read_phase_clocks(out);
+}
+#endif
 
 // work: B*n*n + 2*B*n floats.
 extern "C" int qpdo_chol_solve_global_f32(const void* K, const void* rhs,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the cycles of the fused KKT-solve kernel and of the formation
-kernel go, phase by phase, on one NVIDIA GPU (which has no profiler at
-hand: this stands in for one).
+"""Where the cycles of the fused KKT-solve kernel, of the formation
+kernel and of the global-memory route of the two KKT kernels go, phase by
+phase, on one NVIDIA GPU (which has no profiler at hand: this stands in
+for one).
 
     python3 scripts/kernel_phase_clocks.py
 
@@ -10,7 +11,10 @@ The marks live in the sources behind ``-DQPDO_PHASE_CLOCKS``
 builds kkt_solve.cu and formation.cu with that macro into
 build/kernel_phase_clocks/, runs each kernel at the bench shape (B=256,
 m=150, n=100, float32) and with one block alone (B=1), and prints the cycles
-that thread 0 of block 0 took between the marks, with the SM clock.  The
+that thread 0 of block 0 took between the marks, with the SM clock.  Then
+it builds kkt_solve_large.cu (with formation.cu, which forms its K) and
+runs both of its entry points at the shapes of chip_smoke.py's phase 6b
+(``GLOBAL_SHAPES``), with the time of a call (CUDA events).  The
 marked kernels compute the same values; their times are not those of the
 shipped kernels (the marks cost a few cycles each and hold instructions in
 place).
@@ -40,14 +44,22 @@ KKT_PHASES = ("prologue (Q into registers, first stage of A)",
 FORMATION_PHASES = ("prologue", "waiting for cp.async", "barriers",
                     "issuing the next stage", "multiplication",
                     "epilogue (thread 0: a micro-tile on the diagonal)")
+# kkt_solve_large.cu: laps of thread 0 of block 0 (one problem), summed
+# over the panels
+GLOBAL_PHASES = ("Jacobi scale (kernel 4: the copy of K)",
+                 "diagonal-block factor", "strip right of the block",
+                 "trailing update", "back substitution", "unscale")
+# (B, m, n) of chip_smoke.py's LARGE_KKT_SHAPES
+GLOBAL_SHAPES = ((8, 384, 256), (8, 768, 512), (64, 450, 300),
+                 (1, 1536, 1024))
 
 
-def marked_library(name: str) -> ctypes.CDLL:
-    """One source built alone with the marks compiled in."""
+def marked_library(*names: str) -> ctypes.CDLL:
+    """The sources built together with the marks compiled in."""
     WORK.mkdir(parents=True, exist_ok=True)
-    out = WORK / f"lib{Path(name).stem}_clocks.so"
+    out = WORK / f"lib{Path(names[0]).stem}_clocks.so"
     cmd = [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-DQPDO_PHASE_CLOCKS",
-           "-shared", "-o", str(out), str(kernels.CSRC / name)]
+           "-shared", "-o", str(out), *(str(kernels.CSRC / n) for n in names)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(proc.stderr[-4000:])
@@ -66,6 +78,66 @@ def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", "-i", "0", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def global_route(lib) -> None:
+    """Both entry points of kkt_solve_large.cu at GLOBAL_SHAPES: the laps of
+    GLOBAL_PHASES for problem 0, the SM clock, and the time of a call."""
+    from qpdo_tpu_torch.ops import fused_formation as ff
+
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.qpdo_kkt_solve_global_f32.argtypes = [ptr] * 8 + [i] * 4 + [ptr]
+    lib.qpdo_chol_solve_global_f32.argtypes = [ptr] * 4 + [i] * 2 + [ptr]
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = ff.sm_count(0)
+    for B, M, N in GLOBAL_SHAPES:
+        rng = np.random.default_rng(N)
+        Mx = rng.standard_normal((B, N, N))
+        arrays = (np.einsum("bij,bkj->bik", Mx, Mx) / N + 0.1 * np.eye(N),
+                  rng.standard_normal((B, M, N)), rng.random((B, M)),
+                  np.full(B, 1e-3), rng.standard_normal((B, N)))
+        Q, A, w, sigma, rhs = [
+            torch.as_tensor(a, dtype=torch.float32, device="cuda:0")
+            for a in arrays]
+        K = A.mT @ (w[..., None] * A) + Q + sigma[:, None, None] * torch.eye(
+            N, device="cuda:0")
+        d = torch.diagonal(K, dim1=-2, dim2=-1).rsqrt()
+        Khat = (K * d[:, :, None] * d[:, None, :]).contiguous()
+        bhat = (rhs * d).contiguous()
+        dx = torch.empty_like(rhs)
+        work = torch.empty(B * N * (N + 2), dtype=torch.float32,
+                           device="cuda:0")
+        splits = ff.formation_splits(B, M, N, sms)
+        partial = (torch.empty((B, splits, N, N), dtype=torch.float32,
+                               device="cuda:0") if splits > 1 else None)
+        calls = {
+            "kkt_solve_global": lambda: lib.qpdo_kkt_solve_global_f32(
+                Q.data_ptr(), A.data_ptr(), w.data_ptr(), sigma.data_ptr(),
+                rhs.data_ptr(), dx.data_ptr(), work.data_ptr(),
+                None if partial is None else partial.data_ptr(), B, M, N,
+                splits, stream),
+            "chol_solve_global": lambda: lib.qpdo_chol_solve_global_f32(
+                Khat.data_ptr(), bhat.data_ptr(), dx.data_ptr(),
+                work.data_ptr(), B, N, stream)}
+        for name, call in calls.items():
+            for _ in range(3):      # the last of three runs is printed
+                err = call()
+                torch.cuda.synchronize()
+                t = read_clocks(lib.qpdo_kkt_large_phase_clocks)
+            assert err == 0 and torch.isfinite(dx).all(), name
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                call()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 20
+            print(f"{name} (B={B}, m={M}, n={N}), problem 0: "
+                  + "; ".join(f"{ph} {t[k]}"
+                              for k, ph in enumerate(GLOBAL_PHASES))
+                  + f"; total {sum(t[:len(GLOBAL_PHASES)])} cycles at SM "
+                  f"clock {smi('clocks.sm')}; {ms:.4f} ms a call", flush=True)
 
 
 def main() -> int:
@@ -112,6 +184,7 @@ def main() -> int:
               + "; ".join(f"{name} {t[k]}"
                           for k, name in enumerate(FORMATION_PHASES))
               + f"; total {sum(t[:len(FORMATION_PHASES)])} cycles")
+    global_route(marked_library("kkt_solve_large.cu", "formation.cu"))
     return 0
 
 
