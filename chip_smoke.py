@@ -54,11 +54,13 @@ Phases (any failure raises and exits non-zero):
    shared-memory route that serves 128 < n <= 220 (239), against their
    plain versions, same tolerance.
    6b. Both kernels on their global-memory route (n above 220 and 239:
-   K in global memory, formed by kernel 1) at ``LARGE_KKT_SHAPES`` (B=8,
-   n=256 and 512, m = 1.5 n, and phase 7b's shape) against their plain
-   versions and the composition, same tolerance, the route's launches
-   counted; kernel 1 at (8, 768, 512) against its plain version; times
-   beside the library route and the bound.
+   K in global memory, formed by kernel 1, then factored by a sequence of
+   panel and trailing-update launches) at ``LARGE_KKT_SHAPES`` (B=8, n=256
+   and 512, m = 1.5 n, phase 7b's shape, and one problem at n=1024)
+   against their plain versions and the composition, same tolerance, the
+   same bits from a second call, the route's launches counted; kernel 1 at
+   (8, 768, 512) against its plain version; times beside the library
+   route and the bound.
 7. The second path: the same family through ``solve_batch(...,
    compact=True)`` with ``kkt_dtype="float32", mu_min=1e-7,
    refine_steps=2, pallas_kkt=True, pallas_residuals=True`` (float64
@@ -141,19 +143,24 @@ Phases (any failure raises and exits non-zero):
    on an n=500 instance of the generator: the same status (the count is
    printed: rounding moves it by up to 5 at n=1,000 on the CPU,
    scripts/sparse_cg_sensitivity.py, so by phase 9's rule the problem is
-   held to its status) and x within ``CARD_CPU_X_BAND``; (d) a second-difference banded problem
+   held to its status) and x within ``CARD_CPU_X_BAND``; the ordered
+   segment sum kernel launched (every sum into a shared target adds in
+   map order); (d) a second-difference banded problem
    (benchmarks/fuzz_sparse.py kind 0) at n=500 through ``solve_sparse``
    at the defaults: the banded route (``newton_exact``; "auto" is cyclic
    reduction on the card), SOLVED, oracle at 1.1e-6, time per Newton
-   step; (e) fleets: ``solve_sparse_batch`` of
+   step, and solved again: the same bits (x, y, iterations); (e) fleets:
+   ``solve_sparse_batch`` of
    64 same-pattern n=1,000 instances, of 8 mixed patterns (union), and
    ``solve_sparse_heterogeneous`` of 8 sizes in 600-1,000: every problem
-   SOLVED within the oracle; then the formation and residual kernels
-   against their plain versions at every (dtype, B, m, n) that (a) and
-   (c)-(e) gave them on the card (recorded around the solver's calls),
-   on fresh inputs of each shape, with the tolerances of phases 2 and 3;
-   (f) ``PhaseTimer`` around a solve at least the
-   solve's device time, ``trace`` writes a profiler file, a CUDA Result
+   SOLVED within the oracle; then the formation, residual and ordered
+   segment sum kernels against their plain versions at every (dtype,
+   shape) that (a) and (c)-(e) gave them on the card (recorded around the
+   solver's calls, with the segment map), on fresh inputs of each shape,
+   with the tolerances of phases 2 and 3 (the segment sum bit for bit
+   against index_add_ on the CPU); (f) ``PhaseTimer`` around a solve at
+   least the solve's device time, that solve the same bits as 14c's,
+   ``trace`` writes a profiler file, a CUDA Result
    survives ``save_result``/``load_result`` bit for bit, back on the card.
    14c also times the residual kernel's plain version (its library route)
    at B=1 of its shape.
@@ -178,10 +185,14 @@ Phases (any failure raises and exits non-zero):
    converged to 1e-10, the card's five gradients within
    ``LAYER_GRAD_RTOL`` of the CPU's; ``lasso_sparse`` and
    ``huber_sparse`` of a 5,000 x 2,000 F (0.5% dense) SOLVED within the
-   oracle; (e) ``Amv``/``Atmv`` at 14c's shape through the ELL maps and
-   through the scatter (times, and their difference), and 14c's solve
-   again, its CG counts against 14c's; then the kernels against their
-   plain versions at every shape (a)-(d) gave them.
+   oracle; (e) an n=1,000 instance with ``cg_dtype="float32"`` (the
+   float32 segment sums launched), SOLVED within the oracle;
+   ``Amv``/``Atmv`` at 14c's shape through the ELL maps and through the
+   scatter (times, and their difference); 14c's solve again: the same
+   bits as 14c's (x, y, iterations, every CG solve's count and
+   residual); the ordered segment sum timed at 14c's shape beside its
+   plain version, ``index_add_`` and its bound; then the kernels against
+   their plain versions at every shape (a)-(e) gave them.
 16. The distributed paths, in child processes of this script
    (``--phase16-child``, started with the environment ``torchrun`` sets
    and joined by ``multihost.initialize()``; the parent joins no group
@@ -217,13 +228,14 @@ Phases (any failure raises and exits non-zero):
    bit for bit against a second call.
 
 The line before the last is a JSON object with one entry per kernel and
-dtype (formation and residuals in both dtypes), and one per added route
+dtype (formation, residuals and the ordered segment sum "ordered_sum" in
+both dtypes), and one per added route
 ("formation_split" in both dtypes, "kkt_solve_global",
 "chol_solve_global"), with its launches on the path that runs it first
 and on each path (phases 6b, 7b and 7c add "composition_large",
 "pallas_kkt_n300" and "tall_f32"; phase 15 adds "cr",
-"continuation", "structured", "sparse_layer" and
-"sparse_applications"; phase 16 adds "batch_sharded_compact_gloo",
+"continuation", "structured", "sparse_layer", "sparse_applications" and
+"sparse_cg_f32"; phase 16 adds "batch_sharded_compact_gloo",
 "batch_sharded_gloo", "distribute_batch_gloo", "row_sharded_m100000",
 "row_sharded_m100001", "structured_sharded", "sparse_fleet_mesh",
 "serve_mesh", "batch_sharded_compact_nccl", "batch_sharded_nccl" and
@@ -265,8 +277,10 @@ L2_BYTES = 50e6
 FORMATION_TOL = {F32: 1e-5, F64: 1e-12}
 RESIDUAL_RTOL = {F32: 1e-6, F64: 1e-13}
 # kernels 3 and 4 on their global-memory route (phase 6b): (B, m, n) at
-# n = 256 and 512 with m = 1.5 n, and the shape phase 7b's solve gives them
-LARGE_KKT_SHAPES = ((8, 384, 256), (8, 768, 512), (64, 450, 300))
+# n = 256 and 512 with m = 1.5 n, the shape phase 7b's solve gives them, and
+# one large problem (n = 1024)
+LARGE_KKT_SHAPES = ((8, 384, 256), (8, 768, 512), (64, 450, 300),
+                    (1, 1536, 1024))
 # phase 7b: the pallas_kkt path above the shared-memory route (B, n, m)
 PHASE7B = (64, 300, 450)
 
@@ -618,6 +632,7 @@ def main() -> int:
     from qpdo_tpu_torch.ops import linalg as tl
 
     # ---- phase 1: the card, the build ----
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -771,7 +786,8 @@ def main() -> int:
 
     # ---- phase 15: CR, continuation, structured, the sparse layer, ELL ----
     t0 = time.perf_counter()
-    launches15, errs15 = phase15(pt, ff, fr, fk, card, seed, first_solve)
+    launches15, errs15, sum_times = phase15(pt, ff, fr, fk, card, seed,
+                                            first_solve)
     path_launches.update(launches15)
     print(f"phase 15 took {time.perf_counter() - t0:.1f} s, on {card}")
 
@@ -784,7 +800,7 @@ def main() -> int:
     shapes_checked = collections.defaultdict(list)
     for (name, dtype, shape), err in {**errs14, **errs15,
                                       **errs16}.items():
-        max_err[(name, dtype)] = max(max_err[(name, dtype)], err)
+        max_err[(name, dtype)] = max(max_err.get((name, dtype), 0.0), err)
         if list(shape) not in shapes_checked[(name, dtype)]:
             shapes_checked[(name, dtype)].append(list(shape))
 
@@ -800,8 +816,11 @@ def main() -> int:
                   ("formation_split", F32): "tall_f32",
                   ("formation_split", F64): "row_sharded_m100000",
                   ("kkt_solve_global", F32): "pallas_kkt_n300",
-                  ("chol_solve_global", F32): "composition_large"}
+                  ("chol_solve_global", F32): "composition_large",
+                  ("ordered_sum", F32): "sparse_cg_f32",
+                  ("ordered_sum", F64): "sparse"}
     rows += route_rows(times6b, tall)
+    rows += ordered_sum_rows(sum_times)
     for key, err in errs6b.items():
         max_err[key] = max(max_err.get(key, 0.0), err)
     for t in tall:
@@ -816,6 +835,8 @@ def main() -> int:
                                  for path, counts in path_launches.items()}
         if key == ("residuals", F64):
             r["sparse_shape"] = sparse_shape
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s "
+          f"on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1062,7 +1083,9 @@ def pallas_kkt_settings(pt):
 
 
 def reset_counts(*modules):
-    for mod in modules:
+    from qpdo_tpu_torch.ops import ordered_sum
+
+    for mod in (*modules, ordered_sum):
         for fn in vars(mod).values():
             for counter in ("launches", "split_launches", "routes"):
                 if callable(fn) and hasattr(fn, counter):
@@ -1086,6 +1109,12 @@ def launch_counts(ff, fr, fk):
     counts[("kkt_solve_global", F32)] = fk.fused_kkt_solve.routes["global"]
     counts[("chol_solve_global", F32)] = \
         fk.chol_solve_stacked.routes["global"]
+    # the sparse path's sums into shared targets
+    from qpdo_tpu_torch.ops import ordered_sum
+
+    for dtype in (F32, F64):
+        counts[("ordered_sum", dtype)] = \
+            ordered_sum.ordered_segment_sum.launches[dtype]
     return counts
 
 
@@ -1183,10 +1212,17 @@ def phase6b(ff, fr, fk, tl, card):
                                  f"{routes}, not (1, 1)")
         ref = fk.reference_kkt_solve(Q, A, w, sigma, rhs)
         xref = fk.reference_chol_solve(Khat, bhat)
+        again = (fk.fused_kkt_solve(Q, A, w, sigma, rhs),
+                 fk.chol_solve_stacked(Khat, bhat))
+        if not (torch.equal(again[0], dx) and torch.equal(again[1], x)):
+            raise AssertionError(f"phase 6b: n={n}: a second call gave "
+                                 "other bits")
         for name, got, want in (("kkt_solve_global", dx, ref),
                                 ("chol_solve_global", x, xref)):
             errs[(name, F32)] = max(errs[(name, F32)],
                                     (got - want).abs().max().item())
+        if b > 1:
+            global_route_failures(fk, ff, (Q, A, w, sigma, rhs), dx, x, n)
         for what, r in (("kkt_solve vs plain", rel_err(dx, ref)),
                         ("chol_solve vs plain", rel_err(x, xref)),
                         ("formation -> scale -> chol_solve -> unscale vs "
@@ -1226,6 +1262,37 @@ def phase6b(ff, fr, fk, tl, card):
                      f"; torch.linalg.solve {r['library_ms']:.4f} ms")
                   + f"; bound {bms:.5f} ms (by {by}), on {card}", flush=True)
     return errs, times, composition
+
+
+def global_route_failures(fk, ff, args, dx, x, n):
+    """Problem 0 made indefinite and a NaN in problem 1's rhs, on the global
+    route: kernel and plain version agree on which problems come back
+    non-finite (problem 1 among them), and the other problems keep the
+    bits of the clean run ``dx`` (kernel 3) and ``x`` (kernel 4)."""
+    Q, A, w, sigma, rhs = args
+    Qb, rb = Q.clone(), rhs.clone()
+    Qb[0] = -Qb[0] - 1e3 * torch.eye(n, device=DEVICE)
+    rb[1, 3] = float("nan")
+    Kg, bg, _ = scaled_system(fk, ff, Q, A, w, sigma, rhs)
+    Kb, bb = Kg.clone(), bg.clone()
+    Kb[0] = -Kb[0]
+    bb[1, 3] = float("nan")
+    for what, got, want, clean in (
+            ("kkt_solve", fk.fused_kkt_solve(Qb, A, w, sigma, rb),
+             fk.reference_kkt_solve(Qb, A, w, sigma, rb), dx),
+            ("chol_solve", fk.chol_solve_stacked(Kb, bb),
+             fk.reference_chol_solve(Kb, bb), x)):
+        fin = torch.isfinite(got).all(dim=1)
+        lost = (~fin).nonzero().flatten().tolist()
+        keep = [i for i in range(got.shape[0]) if i not in (0, 1)]
+        if not (torch.equal(fin, torch.isfinite(want).all(dim=1))
+                and 1 in lost and set(lost) <= {0, 1}
+                and torch.equal(got[keep], clean[keep])):
+            raise AssertionError(f"phase 6b: n={n}: {what}: a failure left "
+                                 f"its problem (non-finite {lost})")
+        print(f"phase 6b: n={n}: {what}: non-finite problems {lost} (kernel "
+              f"and plain version agree), the other {len(keep)} "
+              "bit-identical to the clean run")
 
 
 def phase7b(pt, ff, fr, fk, card):
@@ -2022,15 +2089,21 @@ def check_cli_lines(lines, d0, what):
 
 
 @contextlib.contextmanager
-def recording_shapes(shapes):
+def recording_shapes(shapes, maps=None):
     """Add to the set ``shapes`` the (name, dtype, (B, m, n)) of every
     call that the solver makes on the card to the formation and residual
-    wrappers while the context is open.  The calls go through unchanged,
-    so the wrappers count their launches as before."""
+    wrappers while the context is open; with a dict ``maps``, also the
+    ("ordered_sum", dtype, (B, terms, targets)) of every ordered segment
+    sum of the sparse operator and its setup, with the segment map of the
+    first call of each in ``maps``.  The calls go through unchanged, so
+    the wrappers count their launches as before."""
+    from qpdo_tpu_torch import operators
     from qpdo_tpu_torch.ops import linalg
     from qpdo_tpu_torch.solver import core
+    from qpdo_tpu_torch.solver import sparse
 
     formation, residuals = linalg.fused_formation, core.fused_residuals
+    segment_sum = operators.ordered_segment_sum
     card = torch.device(DEVICE).type
 
     def recorded_formation(A, w, Q, sigma):
@@ -2044,21 +2117,63 @@ def recording_shapes(shapes):
             shapes.add(("residuals", Ax.dtype, (*Ax.shape, Qx.shape[1])))
         return residuals(*args, **kwargs)
 
+    def recorded_segment_sum(values, seg):
+        if values.device.type == card:
+            key = ("ordered_sum", values.dtype,
+                   (*values.shape, seg[2].shape[0] - 1))
+            shapes.add(key)
+            maps.setdefault(key, seg)
+        return segment_sum(values, seg)
+
     linalg.fused_formation = recorded_formation
     core.fused_residuals = recorded_residuals
+    if maps is not None:
+        operators.ordered_segment_sum = recorded_segment_sum
+        sparse.ordered_segment_sum = recorded_segment_sum
     try:
         yield shapes
     finally:
         linalg.fused_formation, core.fused_residuals = formation, residuals
+        operators.ordered_segment_sum = segment_sum
+        sparse.ordered_segment_sum = segment_sum
 
 
-def check_path_shapes(ff, fr, shapes, what):
+def check_ordered_sum(dtype, shape, seg):
+    """The ordered segment sum kernel on fresh values of ``shape`` (B,
+    terms, targets) over the segment map ``seg`` (on the card) against its
+    plain version, index_add_ on the CPU: bit for bit.  Returns the max
+    abs error."""
+    from qpdo_tpu_torch.ops import ordered_sum as osum
+
+    b, terms, _ = shape
+    g = torch.Generator(device=DEVICE).manual_seed(terms)
+    values = (torch.randn((b, terms), dtype=dtype, device=DEVICE, generator=g)
+              * 10.0 ** (12 * torch.rand((b, terms), dtype=dtype,
+                                         device=DEVICE, generator=g) - 6))
+    got = osum.ordered_segment_sum(values, seg).cpu()
+    want = osum.reference_segment_sum(values.cpu(),
+                                      tuple(t.cpu() for t in seg))
+    if not torch.equal(got, want):
+        raise AssertionError(f"ordered_sum {dtype} at {shape}: not the bits "
+                             "of index_add_ on the CPU")
+    return (got - want).abs().max().item() if got.numel() else 0.0
+
+
+def check_path_shapes(ff, fr, shapes, what, maps=None):
     """Each kernel against its plain version at every shape of
     ``shapes`` (recording_shapes), on fresh inputs of that shape: the
-    residual kernel bit for bit, the formation kernel within
-    FORMATION_TOL.  Returns {(name, dtype, (B, m, n)): max abs err}."""
+    residual kernel and the ordered segment sum (over the recorded map,
+    ``maps``) bit for bit, the formation kernel within FORMATION_TOL.
+    Returns {(name, dtype, shape): max abs err}."""
     errs = {}
     for name, dtype, (b, m, n) in sorted(shapes, key=str):
+        if name == "ordered_sum":
+            err = check_ordered_sum(dtype, (b, m, n),
+                                    maps[(name, dtype, (b, m, n))])
+            errs[(name, dtype, (b, m, n))] = err
+            print(f"{what}: ordered_sum {dtype} at B={b} terms={m} targets="
+                  f"{n}: bit-identical to index_add_ on the CPU")
+            continue
         if name == "formation":
             err, _ = check_formation(ff, dtype, FORMATION_TOL[dtype], b, m, n)
             how = f"within {FORMATION_TOL[dtype]} of max|K|"
@@ -2097,7 +2212,7 @@ def phase14(pt, ff, fr, fk, card):
     from qpdo_tpu_torch.utils import checkpoint, profiling
 
     launches = {}
-    shapes = set()
+    shapes, maps = set(), {}
     tmp = tempfile.mkdtemp(prefix="qpdo_phase14_")
     try:
         # ---- 14a: the command line, dense branch ----
@@ -2113,7 +2228,7 @@ def phase14(pt, ff, fr, fk, card):
                           A=d0["A"][0], l=d0["l"][0], u=d0["u"][0],
                           n_structural=M), files[-1])
         reset_counts(ff, fr, fk)
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             (rc, lines), cli_s = timed_solve(
                 lambda: run_cli(["--print-solution", *files], cli))
         launches["cli"] = launch_counts(ff, fr, fk)
@@ -2164,7 +2279,7 @@ def phase14(pt, ff, fr, fk, card):
 
         # ---- 14c: sparse CG at full width ----
         reset_counts(ff, fr, fk)
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             first = cg_counted_solve(pt, big)
         first["run"] = lambda: cg_counted_solve(pt, big)
         res, wall = first["res"], first["wall"]
@@ -2179,7 +2294,8 @@ def phase14(pt, ff, fr, fk, card):
               f"iterations a Newton step, kernel launches "
               f"{printable(launches['sparse'])}")
         check_sparse(pt, [big], res, "phase 14c solve_sparse")
-        require_launched(launches["sparse"], "phase 14c", ("residuals", F64))
+        require_launched(launches["sparse"], "phase 14c", ("residuals", F64),
+                         ("ordered_sum", F64))
         op = setup_sparse(Q, q, A, l, u)
         xv = torch.randn((1, op.n), dtype=F64, device=DEVICE)
         yv = torch.randn((1, op.m), dtype=F64, device=DEVICE)
@@ -2225,7 +2341,7 @@ def phase14(pt, ff, fr, fk, card):
                 and rp <= 1.1e-6 and rd <= 1.1e-6):
             raise AssertionError("phase 14c: --sparse on the QPS file")
         small = large_sparse(PHASE14_CPU_N, PHASE14_CPU_N // 2)
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             both = {dev: timed_solve(
                 lambda: pt.solve_sparse(*small, device=dev))
                 for dev in (DEVICE, "cpu")}
@@ -2249,32 +2365,38 @@ def phase14(pt, ff, fr, fk, card):
         # ---- 14d: the banded route (cyclic reduction on the card) ----
         band = second_difference(PHASE14_BANDED_N)
         exact = setup_sparse(*band).newton_exact(pt.Settings())
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             res, wall = timed_solve(lambda: pt.solve_sparse(*band))
         its = int(res.info.iterations[0])
+        again = pt.solve_sparse(*band)
+        same = (torch.equal(again.x, res.x) and torch.equal(again.y, res.y)
+                and int(again.info.iterations[0]) == its)
         print(f"phase 14d: second difference n={PHASE14_BANDED_N}: banded "
               f"route (newton_exact) {exact}, {res.info.status[0]} in {its} "
               f"iterations, {wall:.2f} s, {wall / max(its, 1) * 1e3:.1f} ms a"
-              f" Newton step")
+              f" Newton step; solved again: "
+              f"{'the same bits (x, y, iterations)' if same else 'DIFFERENT'}")
         if not exact:
             raise AssertionError("phase 14d: the banded maps were not built")
+        if not same:
+            raise AssertionError("phase 14d: a second solve gave other bits")
         check_sparse(pt, [band], res, "phase 14d")
 
         # ---- 14e: fleets ----
         fleet = sparse_fleet(PHASE14_SMALL_N, PHASE14_FLEET_B, seed=3)
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             res, t_same = timed_solve(lambda: pt.solve_sparse_batch(fleet))
         check_sparse(pt, fleet, res, f"phase 14e same pattern "
                                      f"B={PHASE14_FLEET_B} ({t_same:.2f} s)")
         mixed = [large_sparse(PHASE14_SMALL_N, PHASE14_SMALL_N // 2, seed=s)
                  for s in range(10, 18)]
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             res, t_mixed = timed_solve(lambda: pt.solve_sparse_batch(mixed))
         check_sparse(pt, mixed, res, f"phase 14e mixed patterns B=8 "
                                      f"({t_mixed:.2f} s)")
         hetero = [large_sparse(n, n // 2, seed=20 + k)
                   for k, n in enumerate(PHASE14_HETERO_N)]
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             res, t_het = timed_solve(
                 lambda: pt.solve_sparse_heterogeneous(hetero))
         check_sparse(pt, hetero, res, f"phase 14e heterogeneous B=8 "
@@ -2285,7 +2407,7 @@ def phase14(pt, ff, fr, fk, card):
         if big_shape not in shapes:
             raise AssertionError("phase 14: the residual kernel's shape of "
                                  "14c was not recorded")
-        errs = check_path_shapes(ff, fr, shapes, "phase 14 shapes")
+        errs = check_path_shapes(ff, fr, shapes, "phase 14 shapes", maps)
         sparse_shape["max_abs_err"] = errs[big_shape]
 
         # ---- 14f: the utilities ----
@@ -2306,10 +2428,11 @@ def phase14(pt, ff, fr, fk, card):
               f"events {dev_s:.4f} s; the n={PHASE14_CPU_N} solve of 14c "
               f"again: "
               f"{int(res.info.iterations[0])} iterations, x "
-              f"{'bit for bit equal' if equal else 'different'} (index_add_"
-              f" adds float64 with atomics)")
+              f"{'bit for bit equal' if equal else 'DIFFERENT'}")
         if not timer.times["solve"] >= dev_s:
             raise AssertionError("phase 14f: PhaseTimer ended before the card")
+        if not equal:
+            raise AssertionError("phase 14f: a second solve gave another x")
         trace_dir = os.path.join(tmp, "trace")
         with profiling.trace(trace_dir):
             pt.solve_sparse(*second_difference(64))
@@ -2356,13 +2479,23 @@ def cg_counted_solve(pt, data):
     """``solve_sparse`` of ``data`` on the card with its CG solves counted
     (a problem that is not banded: every CG solve is a Newton solve).
     Returns the result, the wall time, the iterations, the CG solves and
-    CG iterations, and x."""
+    CG iterations, every CG solve's (iterations, relative residual), x
+    and y."""
     calls = []
     with recording_pcg(calls):
         res, wall = timed_solve(lambda: pt.solve_sparse(*data))
     return dict(res=res, wall=wall, iterations=int(res.info.iterations[0]),
                 cg_solves=len(calls),
-                cg_iterations=sum(its for its, _ in calls), x=res.x)
+                cg_iterations=sum(its for its, _ in calls), cg_calls=calls,
+                x=res.x, y=res.y)
+
+
+def same_solve(a, b):
+    """Whether two cg_counted_solve results have the same bits: x, y,
+    iterations and every CG solve's count and residual."""
+    return (torch.equal(a["x"], b["x"]) and torch.equal(a["y"], b["y"])
+            and a["iterations"] == b["iterations"]
+            and a["cg_calls"] == b["cg_calls"])
 
 
 # the sizes of phase 15: the banded problem of 14d uncut, and the pair
@@ -2513,14 +2646,14 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
     from qpdo_tpu_torch.solver.sparse import setup_sparse
 
     launches = {}
-    shapes = set()
+    shapes, maps = set(), {}
 
     # ---- 15a: cyclic reduction against the scan ----
     band = second_difference(PHASE15_BANDED_N)
     nb, b = setup_sparse(*band).bd_shape
     factors = {}
     reset_counts(ff, fr, fk)
-    with recording_shapes(shapes), counting_factors(factors):
+    with recording_shapes(shapes, maps), counting_factors(factors):
         res, wall = timed_solve(lambda: pt.solve_sparse(*band))
     launches["cr"] = launch_counts(ff, fr, fk)
     its = int(res.info.iterations[0])
@@ -2531,14 +2664,15 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
           f"factorizations {factors}, kernel launches "
           f"{printable(launches['cr'])}", flush=True)
     check_sparse(pt, [band], res, "phase 15a auto")
-    require_launched(launches["cr"], "phase 15a", ("residuals", F64))
+    require_launched(launches["cr"], "phase 15a", ("residuals", F64),
+                     ("ordered_sum", F64))
     if not factors.get("cr") or factors.get("scan float64"):
         raise AssertionError("phase 15a: 'auto' did not take cyclic "
                              "reduction on the card")
     pair = second_difference(PHASE15_PAIR_N, seed=1)
     runs = {}
     for algo in ("cr", "scan"):
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             runs[algo] = timed_solve(lambda: pt.solve_sparse(
                 *pair, settings=pt.Settings(banded_algo=algo)))
     xs = {a: r.x[0].cpu().numpy() for a, (r, _) in runs.items()}
@@ -2566,7 +2700,7 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
         levels, ladder = liswet_ladder(N)
         factors = {}
         per_level = []
-        with recording_shapes(shapes), counting_factors(factors):
+        with recording_shapes(shapes, maps), counting_factors(factors):
             out, wall = timed_solve(lambda: pt.solve_continuation(
                 ladder, settings,
                 prolong=lambda x, y, i: pt.grid1d_prolong(
@@ -2588,13 +2722,13 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
             raise AssertionError(f"phase 15b {name}: the finest level")
     launches["continuation"] = launch_counts(ff, fr, fk)
     require_launched(launches["continuation"], "phase 15b",
-                     ("residuals", F64))
+                     ("residuals", F64), ("ordered_sum", F64))
 
     # ---- 15c: a two-stage stochastic QP through the structured path ----
     S, n0, ns, ms = PHASE15_S, PHASE15_N0, PHASE15_NS, PHASE15_MS
     p = block_angular(S, ms, n0, ns, seed)
     reset_counts(ff, fr, fk)
-    with recording_shapes(shapes):
+    with recording_shapes(shapes, maps):
         res, wall = timed_solve(
             lambda: structured.solve_block_angular_result(
                 structured.BlockAngularProblem(*p)))
@@ -2613,7 +2747,7 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
     require_launched(launches["structured"], "phase 15c", ("residuals", F64))
     small = structured.BlockAngularProblem(*block_angular(
         PHASE15_DENSE_S, ms, n0, ns, seed))
-    with recording_shapes(shapes):
+    with recording_shapes(shapes, maps):
         sres = structured.solve_block_angular_result(small)
         dense = pt.solve(structured.to_dense_problem(small))
     gap = (torch.cat([sres.x[0], sres.x[1].flatten(1)], 1)
@@ -2639,7 +2773,7 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
         ts = [torch.tensor(v, device=dev, requires_grad=True)
               for v in values]
         calls = []
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             (x, y), fwd = timed_solve(lambda: layer(*ts))
             loss = ((torch.as_tensor(gx, device=dev) * x).sum()
                     + (torch.as_tensor(gy, device=dev) * y).sum())
@@ -2671,7 +2805,7 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
                       zip(("q_data", "a_data", "q", "l", "u"), errs)),
           flush=True)
     require_launched(launches["sparse_layer"], "phase 15d",
-                     ("residuals", F64))
+                     ("residuals", F64), ("ordered_sum", F64))
     if not max(errs) <= LAYER_GRAD_RTOL:
         raise AssertionError(f"phase 15d: card gradients beyond "
                              f"{LAYER_GRAD_RTOL} of the CPU's")
@@ -2685,7 +2819,7 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
                             F, b_f, 0.05)),
                        ("huber_sparse", pt.applications.huber_sparse(
                            F, b_f, 0.5))):
-        with recording_shapes(shapes):
+        with recording_shapes(shapes, maps):
             res, wall = timed_solve(lambda: pt.solve_sparse(
                 *data, settings=ladder_like))
         print(f"phase 15d: {name} F {N_f}x{p_f} ({F.nnz} nonzeros): n="
@@ -2695,7 +2829,21 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
         check_sparse(pt, [data], res, f"phase 15d {name}")
     launches["sparse_applications"] = launch_counts(ff, fr, fk)
 
-    # ---- 15e: ELL against the scatter at 14c's shape ----
+    # ---- 15e: mixed-precision CG (the float32 sums), ELL against the
+    # scatter at 14c's shape, 14c's solve again ----
+    mixed = large_sparse(PHASE14_SMALL_N, PHASE14_SMALL_N // 2, seed=7)
+    reset_counts(ff, fr, fk)
+    with recording_shapes(shapes, maps):
+        res, wall = timed_solve(lambda: pt.solve_sparse(
+            *mixed, settings=pt.Settings(cg_dtype="float32")))
+    launches["sparse_cg_f32"] = launch_counts(ff, fr, fk)
+    print(f"phase 15e: n={PHASE14_SMALL_N} with cg_dtype='float32': "
+          f"{res.info.status[0]} in {int(res.info.iterations[0])} "
+          f"iterations, {wall:.2f} s, kernel launches "
+          f"{printable(launches['sparse_cg_f32'])}", flush=True)
+    require_launched(launches["sparse_cg_f32"], "phase 15e cg_dtype float32",
+                     ("residuals", F64), ("ordered_sum", F32))
+    check_sparse(pt, [mixed], res, "phase 15e cg_dtype float32")
     big = large_sparse(PHASE14_N, PHASE14_M_INEQ)
     op = setup_sparse(*big)
     if op.ellA is None or op.ellAt is None:
@@ -2712,17 +2860,84 @@ def phase15(pt, ff, fr, fk, card, seed, first_solve):
               f"{device_ms(fs):.5f}; max|ELL - scatter| {gap:.3e}",
               flush=True)
     again = first_solve["run"]()
+    same = same_solve(again, first_solve)
     print(f"phase 15e: 14c's solve again through ELL: {again['iterations']}"
           f" iterations, {again['cg_iterations']} CG iterations in "
           f"{again['cg_solves']} CG solves (14c: {first_solve['iterations']},"
           f" {first_solve['cg_iterations']} in {first_solve['cg_solves']}); "
-          f"x {'bit for bit equal' if torch.equal(again['x'], first_solve['x']) else 'different'}"
+          f"{'the same bits: x, y, iterations, every CG count and residual' if same else 'DIFFERENT'}"
           f" (max|dx| "
-          f"{(again['x'] - first_solve['x']).abs().max().item():.3e})",
+          f"{(again['x'] - first_solve['x']).abs().max().item():.3e}; with "
+          f"index_add_'s atomics two runs took 53 and 55 iterations)",
           flush=True)
+    if not same:
+        raise AssertionError("phase 15e: 14c's solve again gave other bits")
+    times = ordered_sum_times(op)
 
-    errs = check_path_shapes(ff, fr, shapes, "phase 15 shapes")
-    return launches, errs
+    errs = check_path_shapes(ff, fr, shapes, "phase 15 shapes", maps)
+    return launches, errs, times
+
+
+def ordered_sum_times(op):
+    """The ordered segment sum at 14c's shape (the operator ``op``), in
+    both dtypes, over the block-Jacobi map (once a Newton step) and the
+    coarse restriction's (once a CG iteration): the kernel, its plain
+    version (zeros + index_add_ on the card) and the library call
+    (index_add_ alone, into a tensor made once), and the bound (bytes:
+    the values, order and offsets read once, the sums written once).
+    Returns {dtype: [one dict a map]}."""
+    from qpdo_tpu_torch.ops import ordered_sum as osum
+
+    times = {}
+    for dtype in (F32, F64):
+        size = torch.empty((), dtype=dtype).element_size()
+        for name in ("segPJ", "segRC"):
+            seg = getattr(op, name)
+            terms, targets = seg[0].shape[0], seg[2].shape[0] - 1
+            v = torch.randn((1, terms), dtype=dtype, device=DEVICE)
+            out = torch.zeros((1, targets), dtype=dtype, device=DEVICE)
+            k = lambda: osum.ordered_segment_sum(v, seg)
+            p = lambda: osum.reference_segment_sum(v, seg)
+            lib_call = lambda: out.index_add_(1, seg[0], v)
+            nbytes = (terms * (size + 8) + (targets + 1) * 8
+                      + targets * size)
+            bms, by = bound_ms(nbytes, terms,
+                               PEAK_F32 if dtype == F32 else PEAK_F64)
+            r = dict(map=name, B=1, terms=terms, targets=targets,
+                     ms=time_ms(k), device_ms=device_ms(k),
+                     plain_ms=time_ms(p), library_ms=time_ms(lib_call),
+                     library_device_ms=device_ms(lib_call), bound_ms=bms,
+                     bound_by=by, bytes=nbytes)
+            times.setdefault(dtype, []).append(r)
+            print(f"phase 15e: ordered_sum {dtype} over {name} at 14c's "
+                  f"shape (B=1, {terms} terms, {targets} targets): kernel "
+                  f"{r['ms']:.5f} ms as called, {r['device_ms']:.5f} on the "
+                  f"card alone; plain version (zeros + index_add_) "
+                  f"{r['plain_ms']:.5f}; index_add_ alone "
+                  f"{r['library_ms']:.5f}, {r['library_device_ms']:.5f} on "
+                  f"the card alone; bound {bms:.5f} ms (by {by}, "
+                  f"{nbytes / 1e6:.2f} MB)", flush=True)
+    return times
+
+
+def ordered_sum_rows(times):
+    """Rows of the kernels line for the ordered segment sum, both dtypes:
+    the headline at 14c's block-Jacobi map, every timed map under
+    "shapes"."""
+    rows = []
+    for dtype, maps in times.items():
+        head = maps[0]
+        rows.append({
+            "name": "ordered_sum", "dtype": str(dtype).replace("torch.", ""),
+            "route": "cuda", "source": "qpdo_tpu_torch/csrc/ordered_sum.cu",
+            "replaces": "none: the order of qpdo_tpu/operators.py:772-775's "
+                        "scatter-adds, which XLA's scatter keeps on the TPU",
+            "launches": 0, "max_abs_err": 0.0,
+            **{k: head[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            "library_device_ms": head["library_device_ms"],
+            "library_call": "Tensor.index_add_", "shapes": maps})
+    return rows
 
 
 def flat_tensors(tree):
@@ -3239,7 +3454,7 @@ def phase16e(pt, mesh, rank, tag, path, say, report):
     the ranks: every problem SOLVED within the oracle.  CG counts move
     with rounding (ROADMAP Queue 3), so no count is held."""
     fleet = sparse_fleet(PHASE16_FLEET_N, PHASE16_FLEET_B, seed=3)
-    with path("sparse_fleet_mesh", ("residuals", F64)):
+    with path("sparse_fleet_mesh", ("residuals", F64), ("ordered_sum", F64)):
         res, wall = timed_solve(lambda: pt.solve_sparse_batch(fleet,
                                                               mesh=mesh))
     report["times"]["sparse_fleet_s"] = wall

@@ -8,6 +8,10 @@
 //  * QPDO_MARK(i) stores the clock at a point passed once: slot i.
 //  * QPDO_LAPS_BEGIN(), QPDO_LAP(i), QPDO_LAPS_END() add up, over a loop,
 //    the cycles since the lap before into slot i, in one function.
+//  * QPDO_SPAN_BEGIN(), QPDO_SPAN(i) add the cycles since the span before
+//    to slot i at once, so that a sequence of launches adds up there (the
+//    launches of a stream run one after another); the file's
+//    qpdo_*_phase_clocks_reset entry point sets the slots to 0 first.
 // The marks cost a few cycles each and hold instructions in place: a marked
 // kernel computes the same values, not at the shipped kernel's time.
 
@@ -27,6 +31,12 @@ __device__ __forceinline__ bool phase_clock_recorder() {
 inline int read_phase_clocks(long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(
       out, qpdo_phase_clocks, sizeof(long long) * kPhaseClocks));
+}
+
+inline int reset_phase_clocks() {
+  static const long long zeros[kPhaseClocks] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(qpdo_phase_clocks, zeros, sizeof(zeros)));
 }
 
 }  // namespace
@@ -49,11 +59,22 @@ inline int read_phase_clocks(long long* out) {
       qpdo_phase_clocks[qpdo_i] = qpdo_laps[qpdo_i];                 \
   }
 
+#define QPDO_SPAN_BEGIN() long long qpdo_span_last = clock64()
+#define QPDO_SPAN(i)                                                 \
+  do {                                                               \
+    const long long qpdo_now = clock64();                            \
+    if (phase_clock_recorder())                                      \
+      qpdo_phase_clocks[i] += qpdo_now - qpdo_span_last;             \
+    qpdo_span_last = qpdo_now;                                       \
+  } while (0)
+
 #else
 
 #define QPDO_MARK(i)
 #define QPDO_LAPS_BEGIN()
 #define QPDO_LAP(i)
 #define QPDO_LAPS_END()
+#define QPDO_SPAN_BEGIN()
+#define QPDO_SPAN(i)
 
 #endif

@@ -34,7 +34,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("formation.cu", "residuals.cu", "kkt_solve.cu", "kkt_solve_large.cu")
+SOURCES = ("formation.cu", "residuals.cu", "kkt_solve.cu", "kkt_solve_large.cu",
+           "ordered_sum.cu")
 # included by the sources
 HEADERS = ("async_copy.cuh", "phase_clocks.cuh", "shared_grant.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -50,6 +51,7 @@ _KERNELS = {
     "chol_solve": (3, 2, (torch.float32,)),                 # B, n
     "kkt_solve_global": (8, 4, (torch.float32,)),           # B, m, n, splits
     "chol_solve_global": (4, 2, (torch.float32,)),          # B, n
+    "ordered_sum": (4, 3, (torch.float32, torch.float64)),  # B, terms, targets
 }
 # The routes of the KKT kernels by n: K in the registers of one block up
 # to REGISTER_MAX_N, in its shared memory up to the shared-memory route's

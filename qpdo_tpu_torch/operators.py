@@ -39,6 +39,7 @@ from .ops.linalg import (_cholesky_nan, cholesky_solve, form_kkt,
                          fused_kkt_route, kkt_cache_build, kkt_inverse,
                          newton_system_solve, newton_system_solve_cached,
                          resolve_dtype, saddle_polish_solve)
+from .ops.ordered_sum import ordered_segment_sum
 from .types import ScaledProblem, Settings, tree_map
 
 # Every operator may carry a comm (``parallel/comm.py``) in ``comm``: the
@@ -521,12 +522,6 @@ def _tri_solve(L, r, lower_trans: bool = False):
     return z[..., 0]
 
 
-def _flat(block, o1, o2, b: int):
-    """Index of entry (o1, o2) of block ``block`` in a flattened stack of
-    b x b blocks."""
-    return (block * b + o1) * b + o2
-
-
 class SparseOperator:
     """Sparse triplets of Q/A with matrix-free Newton solves, batch-first.
 
@@ -546,21 +541,26 @@ class SparseOperator:
     union).  This replaces the JAX package's stacking and ``vmap`` over
     per-problem operators.
 
-    A matvec is a scatter (``index_add_``) over the row-sorted triplets,
-    which takes every pattern, or, where the operator carries the ELL
-    maps of its direction (``ellQ``, ``ellA``, ``ellAt``:
-    ``solver/sparse.py:_ell_maps``, built on a CUDA device as the JAX
-    package builds them off the CPU), a gather and a dense row sum
-    (operators.py:777-809).  On the CPU the scatter adds in the order of
-    the triplets, as the JAX package's does; on a CUDA device its float64
-    adds are atomics, whose order, and so the last bits, may change from
-    run to run, while the ELL row sum has a fixed order.
+    A matvec is a scatter over the row-sorted triplets, which takes every
+    pattern, or, where the operator carries the ELL maps of its direction
+    (``ellQ``, ``ellA``, ``ellAt``: ``solver/sparse.py:_ell_maps``, built
+    on a CUDA device as the JAX package builds them off the CPU), a gather
+    and a dense row sum (operators.py:777-809).  Every sum into a shared
+    target (the scatter matvecs, diag(K), the block-Jacobi, coarse and
+    banded blocks) goes through ``ops.ordered_sum.ordered_segment_sum``
+    over the segment map that setup built for it (``segQ``, ``segA``,
+    ``segAt``, ``segPJ``, ``segPC``, ``segRC``, ``segBD``, ``segBDsub``:
+    ``solver/sparse.py:_segment_maps``): each target adds its terms in the
+    order of the triplets, as the JAX package's ``.at[].add`` does, with
+    the same bits on every run and device.
     """
 
     FIELDS = ("q_data", "q_idx", "a_data", "a_idx", "diagQ", "q", "l", "u",
               "c", "D", "Dinv", "E", "Einv", "cost", "cinv", "l_finite",
               "u_finite", "pjA", "pjQ", "pcA", "pcQ", "pc_counts", "bdA",
-              "bdAsub", "bdQ", "bdQsub", "bd_shape", "ellQ", "ellA", "ellAt")
+              "bdAsub", "bdQ", "bdQsub", "bd_shape", "ellQ", "ellA", "ellAt",
+              "segQ", "segA", "segAt", "segPJ", "segPC", "segRC", "segBD",
+              "segBDsub")
 
     comm = None
 
@@ -602,15 +602,14 @@ class SparseOperator:
             self._casts[key] = base.to(dtype)
         return self._casts[key]
 
-    def _scatter_mv(self, name, rows, cols, x, out_dim, dtype):
-        """out[:, rows[k]] += data[:, k] * x[:, cols[k]], in ``dtype`` (the
-        state dtype when None) and returned in the state dtype."""
+    def _scatter_mv(self, name, seg, cols, x, dtype):
+        """out[:, t] = the sum over k with target t of the segment map
+        ``seg`` of data[:, k] * x[:, cols[k]], in map order, in ``dtype``
+        (the state dtype when None) and returned in the state dtype."""
         cd = self.dtype if dtype is None else resolve_dtype(dtype, self.dtype)
         data = self._data(name, cd)
         prod = data * x.index_select(1, cols).to(cd)
-        out = torch.zeros((x.shape[0], out_dim), dtype=cd, device=x.device)
-        out.index_add_(1, rows, prod)
-        return out.to(self.dtype)
+        return ordered_segment_sum(prod, seg).to(self.dtype)
 
     def _ell_vals(self, name, which, dtype: torch.dtype):
         """data[:, gather] * mask of the ELL map ``which`` in ``dtype``,
@@ -632,48 +631,48 @@ class SparseOperator:
     def Qmv(self, x, dtype=None):
         if self.ellQ is not None:
             return self._ell_mv("q_data", "ellQ", x, dtype)
-        return self._scatter_mv("q_data", self.q_idx[:, 0], self.q_idx[:, 1],
-                                x, self.n, dtype)
+        return self._scatter_mv("q_data", self.segQ, self.q_idx[:, 1], x,
+                                dtype)
 
     def Amv(self, x, dtype=None):
         if self.ellA is not None:
             return self._ell_mv("a_data", "ellA", x, dtype)
-        return self._scatter_mv("a_data", self.a_idx[:, 0], self.a_idx[:, 1],
-                                x, self.m, dtype)
+        return self._scatter_mv("a_data", self.segA, self.a_idx[:, 1], x,
+                                dtype)
 
     def Atmv(self, y, dtype=None):
         # A' y re-uses the same triplets with roles swapped
         if self.ellAt is not None:
             return self._ell_mv("a_data", "ellAt", y, dtype)
-        return self._scatter_mv("a_data", self.a_idx[:, 1], self.a_idx[:, 0],
-                                y, self.n, dtype)
+        return self._scatter_mv("a_data", self.segAt, self.a_idx[:, 0], y,
+                                dtype)
 
-    def _pair_mv(self, name, which, rows, cols, xa, xb, out_dim):
-        """Two right-hand sides in one product, (B, k, 2): the ELL gather
-        where the map exists, else one scatter."""
+    def _pair_mv(self, name, which, seg, cols, xa, xb):
+        """Two right-hand sides in one product: the ELL gather where the
+        map exists, else one ordered segment sum of both, (2B, terms)."""
         X = torch.stack([xa, xb], dim=-1)
         if getattr(self, which) is not None:
             idx = getattr(self, which)[1]
             vals = self._ell_vals(name, which, self.dtype)
             V = (vals[..., None] * X[:, idx, :]).sum(-2)
-        else:
-            V = torch.zeros((X.shape[0], out_dim, 2), dtype=self.dtype,
-                            device=X.device)
-            V.index_add_(1, rows, getattr(self, name)[:, :, None]
-                         * X.index_select(1, cols))
-        return V[..., 0], V[..., 1]
+            return V[..., 0], V[..., 1]
+        prod = getattr(self, name)[:, :, None] * X.index_select(1, cols)
+        Bn = X.shape[0]
+        V = ordered_segment_sum(prod.transpose(1, 2).reshape(2 * Bn, -1),
+                                seg).view(Bn, 2, -1)
+        return V[:, 0], V[:, 1]
 
     def Amv2(self, xa, xb):
-        return self._pair_mv("a_data", "ellA", self.a_idx[:, 0],
-                             self.a_idx[:, 1], xa, xb, self.m)
+        return self._pair_mv("a_data", "ellA", self.segA, self.a_idx[:, 1],
+                             xa, xb)
 
     def Atmv2(self, ya, yb):
-        return self._pair_mv("a_data", "ellAt", self.a_idx[:, 1],
-                             self.a_idx[:, 0], ya, yb, self.n)
+        return self._pair_mv("a_data", "ellAt", self.segAt,
+                             self.a_idx[:, 0], ya, yb)
 
     def Qmv2(self, xa, xb):
-        return self._pair_mv("q_data", "ellQ", self.q_idx[:, 0],
-                             self.q_idx[:, 1], xa, xb, self.n)
+        return self._pair_mv("q_data", "ellQ", self.segQ, self.q_idx[:, 1],
+                             xa, xb)
 
     def diag_K(self, active, mu, sigma, proximal: bool):
         """diag(K) in O(nnz) without forming K: diag(Q) + sigma +
@@ -685,10 +684,9 @@ class SparseOperator:
             vals = self._ell_vals("a_data", "ellAt", self.dtype)
             d = (w[:, ridx] * torch.square(vals)).sum(-1)
         else:
-            rows, cols = self.a_idx[:, 0], self.a_idx[:, 1]
-            d = torch.zeros_like(self.diagQ)
-            d.index_add_(1, cols,
-                         w.index_select(1, rows) * torch.square(self.a_data))
+            d = ordered_segment_sum(
+                w.index_select(1, self.a_idx[:, 0])
+                * torch.square(self.a_data), self.segAt)
         d = d + self.diagQ
         if proximal:
             d = d + sigma[:, None]
@@ -703,18 +701,15 @@ class SparseOperator:
         return Kmv
 
     # -- preconditioners --
-    def _block_diagonal(self, pairs, qpart, w, nblocks, b):
+    def _block_diagonal(self, pairs, qpart, seg, w, nblocks, b):
         """Stack of (B, nblocks, b, b) blocks: the w-weighted products of
         same-row A pairs ``pairs`` = (t1, t2, rows, blk, o1, o2), then the
-        Q entries ``qpart`` = (t, blk, o1, o2), added in map order."""
-        t1, t2, rows_p, blk, o1, o2 = pairs
+        Q entries ``qpart`` = (t, blk, o1, o2), added in map order (the
+        segment map ``seg`` holds both, A's terms first)."""
+        t1, t2, rows_p = pairs[:3]
         vals = self.a_data[:, t1] * self.a_data[:, t2] * w[:, rows_p]
-        M = torch.zeros((self.batch, nblocks * b * b), dtype=self.dtype,
-                        device=self.device)
-        M.index_add_(1, _flat(blk, o1, o2, b), vals)
-        tq, qblk, qo1, qo2 = qpart
-        M.index_add_(1, _flat(qblk, qo1, qo2, b), self.q_data[:, tq])
-        return M.view(self.batch, nblocks, b, b)
+        terms = torch.cat([vals, self.q_data[:, qpart[0]]], dim=1)
+        return ordered_segment_sum(terms, seg).view(self.batch, nblocks, b, b)
 
     @staticmethod
     def _lift_diagonal(M, sigma, proximal: bool):
@@ -731,9 +726,9 @@ class SparseOperator:
         """Build the block diagonal of K matrix-free and return the
         preconditioner apply r -> M^-1 r (operators.py:859-913).
 
-        The blocks are assembled by scatter-adds over the precomputed
-        same-row, same-block pairs of A (pjA) and Q's in-block entries
-        (pjQ), then factored by one batched dense Cholesky in
+        The blocks are assembled by an ordered segment sum over the
+        precomputed same-row, same-block pairs of A (pjA) and Q's in-block
+        entries (pjQ), then factored by one batched dense Cholesky in
         ``precond_dtype``.  A block whose factor fails (NaN) falls back to
         its Jacobi rows."""
         b = settings.precond_block
@@ -741,7 +736,8 @@ class SparseOperator:
         nb = -(-n // b)
         dt = self.dtype
         Bn = self.batch
-        blocks = self._block_diagonal(self.pjA, self.pjQ, w, nb, b)
+        blocks = self._block_diagonal(self.pjA, self.pjQ, self.segPJ, w, nb,
+                                      b)
         blocks = self._lift_diagonal(blocks, sigma, settings.proximal)
         # factor in precond_dtype: the preconditioner only steers CG
         pdt = resolve_dtype(settings.precond_dtype, dt)
@@ -771,6 +767,16 @@ class SparseOperator:
 
         return apply
 
+    def _coarse_matrix(self, w):
+        """P'(Q + A'WA)P, (B, nc, nc): the w-weighted products of same-row A
+        pairs ``pcA`` and the Q entries ``pcQ`` in their coarse cells,
+        added in map order (``segPC``, A's terms first)."""
+        nc = self.pc_counts.shape[0]
+        t1, t2, rows_p = self.pcA[:3]
+        vals = self.a_data[:, t1] * self.a_data[:, t2] * w[:, rows_p]
+        return ordered_segment_sum(torch.cat([vals, self.q_data], dim=1),
+                                   self.segPC).view(self.batch, nc, nc)
+
     def _coarse_apply(self, w, sigma, settings: Settings):
         """Two-level additive coarse correction r -> P Kc^-1 P' r with P
         the piecewise-constant aggregation of ``precond_block`` columns
@@ -779,17 +785,8 @@ class SparseOperator:
         with a relative diagonal shift; a failed factor disables the
         correction for that problem."""
         dt = self.dtype
-        n = self.n
-        b = settings.precond_block
-        Bn = self.batch
         nc = self.pc_counts.shape[0]
-        t1, t2, rows_p, J1, J2 = self.pcA
-        vals = self.a_data[:, t1] * self.a_data[:, t2] * w[:, rows_p]
-        qJ1, qJ2 = self.pcQ
-        Kc = torch.zeros((Bn, nc * nc), dtype=dt, device=self.device)
-        Kc.index_add_(1, J1 * nc + J2, vals)
-        Kc.index_add_(1, qJ1 * nc + qJ2, self.q_data)
-        Kc = Kc.view(Bn, nc, nc)
+        Kc = self._coarse_matrix(w)
         counts = self.pc_counts.to(dt)
         shift = sigma if settings.proximal else torch.zeros_like(sigma)
         diag = torch.diagonal(Kc, dim1=-2, dim2=-1)
@@ -801,11 +798,10 @@ class SparseOperator:
         pdt = resolve_dtype(settings.precond_dtype, dt)
         cholc = _cholesky_nan(Kc.to(pdt))
         ok = torch.isfinite(cholc).flatten(1).all(dim=1)
-        cgrid = torch.arange(n, device=self.device) // b
+        cgrid = self.segRC[0]                 # the aggregate of each column
 
         def coarse(r):
-            rc = torch.zeros((Bn, nc), dtype=dt, device=r.device)
-            rc.index_add_(1, cgrid, r)
+            rc = ordered_segment_sum(r, self.segRC)
             z = _tri_solve(cholc, rc.to(pdt))
             z = _tri_solve(cholc, z, lower_trans=True).to(dt)
             z = torch.where(ok[:, None], z, torch.zeros_like(z))
@@ -821,17 +817,17 @@ class SparseOperator:
         return self.bd_shape is not None and settings.newton_direct
 
     def _assemble_banded(self, w, sigma, settings: Settings):
-        """The block-tridiagonal form of K = Q + sigma*I + A'WA by
-        scatter-adds over the banded maps (operators.py:966-1016): D
+        """The block-tridiagonal form of K = Q + sigma*I + A'WA by ordered
+        segment sums over the banded maps (operators.py:966-1016): D
         (B, nb, b, b) diagonal blocks, E (B, max(nb-1, 1), b, b)
         sub-diagonal blocks E_k = K[k+1, k], both Jacobi-equilibrated in
         the state dtype (``banded_jacobi_scale``: S K S with S =
         diag(K)^-1/2) and then cast to the KKT dtype.  Returns (D, E, s)."""
         dt = self.dtype
         nb, b = self.bd_shape
-        D = self._block_diagonal(self.bdA, self.bdQ, w, nb, b)
-        E = self._block_diagonal(self.bdAsub, self.bdQsub, w, max(nb - 1, 1),
-                                 b)
+        D = self._block_diagonal(self.bdA, self.bdQ, self.segBD, w, nb, b)
+        E = self._block_diagonal(self.bdAsub, self.bdQsub, self.segBDsub, w,
+                                 max(nb - 1, 1), b)
         D = self._lift_diagonal(D, sigma, settings.proximal)
         if settings.banded_jacobi_scale:
             s = torch.rsqrt(torch.diagonal(D, dim1=-2, dim2=-1))  # (B, nb, b)

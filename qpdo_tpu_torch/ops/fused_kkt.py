@@ -129,12 +129,18 @@ def kernel_route(name: str, n: int) -> str:
     return "global"
 
 
+def global_work_floats(B: int, n: int) -> int:
+    """The floats of the global route's workspace: K (B, n, n), then
+    dinv, the right-hand side, the diagonal of R and z of every
+    problem."""
+    return B * n * (n + 4)
+
+
 def _launch(name, wrapper, tensors, sizes):
     """Launch kernel ``name`` on float32 contiguous copies of ``tensors``,
     on its route for n, and return its (B, n) output; never the plain
-    version.  The global route's workspace (K, then dinv and the
-    right-hand side of every problem) and, for the fused solve, kernel 1's
-    partial sums are allocated here."""
+    version.  The global route's workspace (``global_work_floats``) and,
+    for the fused solve, kernel 1's partial sums are allocated here."""
     args = [t.to(_F32).contiguous() for t in tensors]
     B, n = sizes[0], sizes[-1]
     device = args[0].device
@@ -143,7 +149,8 @@ def _launch(name, wrapper, tensors, sizes):
     if route != "global":
         kernels.launch(name, _F32, (*args, out), sizes)
     else:
-        work = torch.empty(B * n * (n + 2), dtype=_F32, device=device)
+        work = torch.empty(global_work_floats(B, n), dtype=_F32,
+                           device=device)
         if name == "kkt_solve":
             m = sizes[1]
             splits = fused_formation.formation_splits(

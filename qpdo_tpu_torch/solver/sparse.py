@@ -14,7 +14,9 @@ The operator is batch-first: ``setup_sparse`` builds a batch of one, and
 pattern (float leaves (B, nnz), one shared copy of every index map).  The
 index maps (block-Jacobi, coarse-grid, banded, ELL) are built on the host
 with numpy from the pattern, as the JAX package builds them, and moved to
-the operator's device once.  The ELL matvec maps are built where the
+the operator's device once; so are the segment maps of every sum into a
+shared target (``_segment_map``), which fix the order of those sums on
+every device (``ops/ordered_sum.py``).  The ELL matvec maps are built where the
 operator's device is not the CPU, the JAX package's ``backend != "cpu"``
 rule; its ``QPDO_ELL`` override is not ported.
 """
@@ -26,6 +28,7 @@ import torch
 
 from .. import constants as _c
 from ..operators import SparseOperator
+from ..ops.ordered_sum import ordered_segment_sum
 from .scaling import limit_scaling
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
@@ -292,6 +295,64 @@ def _banded_indices(a_indices, q_indices, n, max_bw: int = 128,
     return bdA, bdAsub, bdQ, bdQsub, (nb, b)
 
 
+def _flat(block, o1, o2, b: int):
+    """Index of entry (o1, o2) of block ``block`` in a flattened stack of
+    b x b blocks."""
+    return (block * b + o1) * b + o2
+
+
+def _segment_map(index, out_dim: int):
+    """The ordered segment map of a sum of terms into ``out_dim`` targets,
+    term k into target ``index[k]``: (index, order, offsets), the term
+    indices sorted by target with a stable sort (each target keeps its
+    terms in term order) and the first term of each target in that order,
+    (out_dim + 1,).  ``ops.ordered_sum.ordered_segment_sum`` adds each
+    target's terms in that order on every device."""
+    index = np.asarray(index, np.int64).reshape(-1)
+    order = np.argsort(index, kind="stable")
+    offsets = np.zeros(out_dim + 1, np.int64)
+    np.cumsum(np.bincount(index, minlength=out_dim), out=offsets[1:])
+    return index, order, offsets
+
+
+def _segment_maps(a_idx, q_idx, n, m, block, pj, pc, bd):
+    """The segment maps of every sum of the operator into a shared target,
+    by field name (None where the maps they sum over are None): the
+    scatter matvecs and diag(Q) and diag(K) (segQ by Q's rows, segA by A's
+    rows, segAt by A's columns); the block-Jacobi blocks (segPJ) and the
+    banded blocks (segBD, segBDsub), A's pair terms first, then Q's; the
+    coarse matrix (segPC, the same) and its restriction (segRC, the
+    columns into their aggregates of ``block``)."""
+    a_idx, q_idx = np.asarray(a_idx), np.asarray(q_idx)
+    maps = dict(segQ=_segment_map(q_idx[:, 0], n),
+                segA=_segment_map(a_idx[:, 0], m),
+                segAt=_segment_map(a_idx[:, 1], n),
+                segPJ=None, segPC=None, segRC=None, segBD=None,
+                segBDsub=None)
+
+    def blocks(pairs, qpart, nblocks, b):
+        return _segment_map(np.concatenate([_flat(*pairs[3:], b),
+                                            _flat(*qpart[1:], b)]),
+                            nblocks * b * b)
+
+    pjA, pjQ = pj
+    if pjA is not None:
+        maps["segPJ"] = blocks(pjA, pjQ, -(-n // block), block)
+    pcA, pcQ, counts = pc
+    if pcA is not None:
+        nc = len(counts)
+        maps["segPC"] = _segment_map(
+            np.concatenate([pcA[3] * nc + pcA[4], pcQ[0] * nc + pcQ[1]]),
+            nc * nc)
+        maps["segRC"] = _segment_map(np.arange(n) // block, nc)
+    bdA, bdAsub, bdQ, bdQsub, shape = bd
+    if shape is not None:
+        nb, b = shape
+        maps["segBD"] = blocks(bdA, bdQ, nb, b)
+        maps["segBDsub"] = blocks(bdAsub, bdQsub, max(nb - 1, 1), b)
+    return maps
+
+
 def _on(maps, device):
     """A tuple of int arrays as tensors on ``device``, int64 except the
     int8 masks of the ELL maps (None stays)."""
@@ -399,10 +460,6 @@ def setup_sparse_batch(q_data, q_idx, a_data, a_idx, q, l, u, c, m: int,
         q_data_s = q_data_s * cost[:, None]
         l_s, u_s = E * l, E * u
 
-    diagQ = torch.zeros((Bn, n), dtype=dt, device=device)
-    diagQ.index_add_(1, qi, torch.where(qi == qj, q_data_s,
-                                        torch.zeros_like(q_data_s)))
-
     pjA = pjQ = pcA = pcQ = pc_counts = None
     bd = (None,) * 5
     if banded_max_bw > 0:
@@ -422,6 +479,12 @@ def setup_sparse_batch(q_data, q_idx, a_data, a_idx, q, l, u, c, m: int,
         ellQ = _ell_maps(qi_np, qj_np, n)
         ellA = _ell_maps(rows_np, cols_np, m)
         ellAt = _ell_maps(cols_np, rows_np, n)
+    seg = {name: _on(v, device) for name, v in _segment_maps(
+        a_idx, q_idx, n, m, precond_block, (pjA, pjQ), (pcA, pcQ, pc_counts),
+        bd).items()}
+    diagQ = ordered_segment_sum(
+        torch.where(qi == qj, q_data_s, torch.zeros_like(q_data_s)),
+        seg["segQ"])
     one = torch.ones((), dtype=dt, device=device)
     return SparseOperator(
         q_data=q_data_s, q_idx=qi_t, a_data=a_data_s, a_idx=ai_t,
@@ -436,4 +499,4 @@ def setup_sparse_batch(q_data, q_idx, a_data, a_idx, q, l, u, c, m: int,
         bdA=_on(bd[0], device), bdAsub=_on(bd[1], device),
         bdQ=_on(bd[2], device), bdQsub=_on(bd[3], device), bd_shape=bd[4],
         ellQ=_on(ellQ, device), ellA=_on(ellA, device),
-        ellAt=_on(ellAt, device))
+        ellAt=_on(ellAt, device), **seg)

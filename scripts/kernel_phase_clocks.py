@@ -44,11 +44,13 @@ KKT_PHASES = ("prologue (Q into registers, first stage of A)",
 FORMATION_PHASES = ("prologue", "waiting for cp.async", "barriers",
                     "issuing the next stage", "multiplication",
                     "epilogue (thread 0: a micro-tile on the diagonal)")
-# kkt_solve_large.cu: laps of thread 0 of block 0 (one problem), summed
-# over the panels
-GLOBAL_PHASES = ("Jacobi scale (kernel 4: the copy of K)",
-                 "diagonal-block factor", "strip right of the block",
-                 "trailing update", "back substitution", "unscale")
+# kkt_solve_large.cu: spans of thread 0 of block (0, 0) of each launch
+# (problem 0: the panel kernel's first column range, the trailing update's
+# first tile pair), summed over the panels
+GLOBAL_PHASES = ("panel: loads (warp 0)", "panel: diagonal block (warp 0)",
+                 "panel: the strip's end after the block's", "panel: stores",
+                 "trailing: loads", "trailing: update and stores",
+                 "back substitution")
 # (B, m, n) of chip_smoke.py's LARGE_KKT_SHAPES
 GLOBAL_SHAPES = ((8, 384, 256), (8, 768, 512), (64, 450, 300),
                  (1, 1536, 1024))
@@ -81,9 +83,12 @@ def smi(query: str) -> str:
 
 
 def global_route(lib) -> None:
-    """Both entry points of kkt_solve_large.cu at GLOBAL_SHAPES: the laps of
-    GLOBAL_PHASES for problem 0, the SM clock, and the time of a call."""
+    """Both entry points of kkt_solve_large.cu at GLOBAL_SHAPES: the spans
+    of GLOBAL_PHASES for problem 0, their sum against the time of a call
+    (CUDA events, 20 calls) at the SM clock: what is left is the gaps
+    between the launches and the blocks after block (0, 0)."""
     from qpdo_tpu_torch.ops import fused_formation as ff
+    from qpdo_tpu_torch.ops import fused_kkt as fk
 
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.qpdo_kkt_solve_global_f32.argtypes = [ptr] * 8 + [i] * 4 + [ptr]
@@ -105,7 +110,7 @@ def global_route(lib) -> None:
         Khat = (K * d[:, :, None] * d[:, None, :]).contiguous()
         bhat = (rhs * d).contiguous()
         dx = torch.empty_like(rhs)
-        work = torch.empty(B * N * (N + 2), dtype=torch.float32,
+        work = torch.empty(fk.global_work_floats(B, N), dtype=torch.float32,
                            device="cuda:0")
         splits = ff.formation_splits(B, M, N, sms)
         partial = (torch.empty((B, splits, N, N), dtype=torch.float32,
@@ -121,6 +126,7 @@ def global_route(lib) -> None:
                 work.data_ptr(), B, N, stream)}
         for name, call in calls.items():
             for _ in range(3):      # the last of three runs is printed
+                assert lib.qpdo_kkt_large_phase_clocks_reset() == 0
                 err = call()
                 torch.cuda.synchronize()
                 t = read_clocks(lib.qpdo_kkt_large_phase_clocks)
@@ -133,11 +139,14 @@ def global_route(lib) -> None:
             end.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(end) / 20
+            clock = smi("clocks.sm")
+            spans = sum(t[:len(GLOBAL_PHASES)])
             print(f"{name} (B={B}, m={M}, n={N}), problem 0: "
                   + "; ".join(f"{ph} {t[k]}"
                               for k, ph in enumerate(GLOBAL_PHASES))
-                  + f"; total {sum(t[:len(GLOBAL_PHASES)])} cycles at SM "
-                  f"clock {smi('clocks.sm')}; {ms:.4f} ms a call", flush=True)
+                  + f"; spans {spans} cycles at SM clock {clock}; {ms:.4f} ms"
+                  f" a call ({ms * 1e-3 * float(clock.split()[0]) * 1e6:.0f}"
+                  f" cycles)", flush=True)
 
 
 def main() -> int:

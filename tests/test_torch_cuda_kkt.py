@@ -55,7 +55,7 @@ def _rel(a, b):
                                    (4, 190, 129), (3, 20, 16), (3, 30, 17),
                                    (260, 150, 100), (2, 332, 221),
                                    (2, 384, 256), (2, 450, 300),
-                                   (2, 768, 512)])
+                                   (2, 768, 512), (1, 1536, 1024)])
 def test_kkt_solve_kernel_matches_plain(device, B, m, n):
     args = _kkt_args(device, B, m, n)
     before = fk.fused_kkt_solve.launches[torch.float32]
@@ -75,7 +75,7 @@ def test_kkt_solve_kernel_matches_plain(device, B, m, n):
 
 @pytest.mark.parametrize("B,n", [(8, 100), (5, 37), (2, 239), (4, 128),
                                  (4, 129), (3, 1), (2, 240), (2, 256),
-                                 (2, 300), (2, 512)])
+                                 (2, 300), (2, 512), (1, 1024)])
 def test_chol_solve_kernel_matches_plain_and_the_fused_solve(device, B, n):
     Q, A, w, sigma, rhs = _kkt_args(device, B, n + n // 2, n)
     K = ff.fused_formation(A, w, Q, sigma)

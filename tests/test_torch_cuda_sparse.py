@@ -6,11 +6,13 @@ no JAX, so they also run without the suite's conftest:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda_sparse.py
 
-The scatter matvecs add float64 with atomics on the card, so a CG-route
-solve may take other iterations than on the CPU (and than another card
-run); it is held to the CPU's status and to the KKT oracle.  The banded
-route is a direct solve: held to the CPU's iterations within one and x
-within 1e-6.
+A CG-route solve may take other iterations on the card than on the CPU
+(its matvecs sum in another order where they gather); it is held to the
+CPU's status and to the KKT oracle.  The banded route is a direct solve:
+held to the CPU's iterations within one and x within 1e-6.  Every sum
+into a shared target adds in map order on the card too
+(``ops/ordered_sum.py``), so two card solves of one problem, by CG or
+banded, give the same bits: x, y, iterations and every CG count.
 """
 
 import json
@@ -23,8 +25,10 @@ import scipy.sparse as sps
 import torch
 
 import qpdo_tpu_torch as pt
+from qpdo_tpu_torch import operators
 from qpdo_tpu_torch.io import QPSData, write_qps
 from qpdo_tpu_torch.ops import fused_residuals as fr
+from qpdo_tpu_torch.ops import ordered_sum as osum
 from qpdo_tpu_torch.solver.sparse import setup_sparse
 
 pytestmark = pytest.mark.cuda
@@ -88,6 +92,38 @@ def test_banded_route_on_the_card(device):
     assert abs(int(card.info.iterations[0]) - int(cpu.info.iterations[0])) <= 1
     np.testing.assert_allclose(card.x[0].cpu().numpy(), cpu.x[0].numpy(),
                                atol=1e-6)
+
+
+def _counted_solve(data, monkeypatch):
+    """A card solve and the (iterations, residual) of every CG solve."""
+    calls = []
+    pcg = operators.pcg
+
+    def recorded(*args, **kwargs):
+        out = pcg(*args, **kwargs)
+        calls.append((int(out[1][0]), float(out[2][0])))
+        return out
+
+    monkeypatch.setattr(operators, "pcg", recorded)
+    res = pt.solve_sparse(*data)
+    monkeypatch.setattr(operators, "pcg", pcg)
+    return res, calls
+
+
+@pytest.mark.parametrize("make,cg", [(lambda: _random(600, 300), True),
+                                     (_banded, False)], ids=["cg", "banded"])
+def test_two_card_solves_give_the_same_bits(device, monkeypatch, make, cg):
+    data = make()
+    op = setup_sparse(*data)
+    assert op.newton_exact(pt.Settings()) != cg
+    before = osum.ordered_segment_sum.launches[torch.float64]
+    first, calls = _counted_solve(data, monkeypatch)
+    assert osum.ordered_segment_sum.launches[torch.float64] > before
+    again, calls_again = _counted_solve(data, monkeypatch)
+    assert first.info.status == ["solved"]
+    assert calls == calls_again and (calls or not cg)
+    assert torch.equal(first.info.iterations, again.info.iterations)
+    assert torch.equal(first.x, again.x) and torch.equal(first.y, again.y)
 
 
 def test_fleet_on_the_card(device):

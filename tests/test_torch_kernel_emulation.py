@@ -34,7 +34,8 @@ STUB = Path(__file__).resolve().parent / "torch_cuda_stub"
 SOURCE_OF = {"formation": "formation.cu", "residuals": "residuals.cu",
              "kkt_solve": "kkt_solve.cu", "chol_solve": "kkt_solve.cu",
              "kkt_solve_global": "kkt_solve_large.cu",
-             "chol_solve_global": "kkt_solve_large.cu"}
+             "chol_solve_global": "kkt_solve_large.cu",
+             "ordered_sum": "ordered_sum.cu"}
 
 _LAUNCH = re.compile(r"(\b[\w:]+(?:<[^<>;]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", re.S)
 _SHARED = re.compile(

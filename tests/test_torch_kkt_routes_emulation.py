@@ -44,7 +44,7 @@ def _kkt_global(lib, Q, A, w, sigma, rhs, splits=1):
     """kkt_solve_global on workspaces that start as NaN."""
     B, m, n = A.shape
     dx = torch.full((B, n), float("nan"))
-    work = torch.full((B * n * (n + 2),), float("nan"))
+    work = torch.full((fk.global_work_floats(B, n),), float("nan"))
     partial = (torch.full((B, splits, n, n), float("nan"))
                if splits > 1 else None)
     args = [t.contiguous() for t in (Q, A, w, sigma, rhs)]
@@ -59,7 +59,7 @@ def _kkt_global(lib, Q, A, w, sigma, rhs, splits=1):
 def _chol_global(lib, K, rhs):
     B, n, _ = K.shape
     dx = torch.full((B, n), float("nan"))
-    work = torch.full((B * n * (n + 2),), float("nan"))
+    work = torch.full((fk.global_work_floats(B, n),), float("nan"))
     K, rhs = K.contiguous(), rhs.contiguous()
     err = lib.qpdo_chol_solve_global_f32(K.data_ptr(), rhs.data_ptr(),
                                          dx.data_ptr(), work.data_ptr(), B, n,
