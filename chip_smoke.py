@@ -53,14 +53,21 @@ Phases (any failure raises and exits non-zero):
    and the other problems are untouched.  Both kernels also at n=200, the
    shared-memory route that serves 128 < n <= 220 (239), against their
    plain versions, same tolerance.
-   6b. Both kernels on their global-memory route (n above 220 and 239:
-   K in global memory, formed by kernel 1, then factored by a sequence of
-   panel and trailing-update launches) at ``LARGE_KKT_SHAPES`` (B=8, n=256
-   and 512, m = 1.5 n, phase 7b's shape, and one problem at n=1024)
-   against their plain versions and the composition, same tolerance, the
-   same bits from a second call, the route's launches counted; kernel 1 at
-   (8, 768, 512) against its plain version; times beside the library
-   route and the bound.
+   6b. Both kernels above the shared-memory route (n above 220 and 239)
+   at ``LARGE_KKT_SHAPES`` (B=8, n=256 and 512, m = 1.5 n, phase 7b's
+   shape, one and two problems at n=1024, one at n=512), on the route that
+   B and n select: the cluster route (a thread-block cluster a problem, K
+   in the blocks' shared memory, one launch after kernel 1) for a few
+   problems, else the global-memory route (a sequence of panel and
+   trailing-update launches); against their plain versions and the
+   composition, same tolerance, the same bits from a second call,
+   failures kept in their problem, the route's launches counted; the
+   other route against the plain versions too; kernel 1 at (8, 768, 512)
+   against its plain version; both routes' times beside the library route
+   and the bound, and the clusters the card holds at once.  Then both
+   kernels at one problem of odd n (``ODD_KKT_SHAPES``: n = 221, 243 and
+   1001, B n^2 odd) on the route each selects, against their plain
+   versions and twice for the same bits.
 7. The second path: the same family through ``solve_batch(...,
    compact=True)`` with ``kkt_dtype="float32", mu_min=1e-7,
    refine_steps=2, pallas_kkt=True, pallas_residuals=True`` (float64
@@ -75,6 +82,14 @@ Phases (any failure raises and exits non-zero):
    with those settings less ``pallas_kkt``: every K formed by kernel 1 in
    float32 with its rows split over blocks (counted and required), SOLVED
    within the oracle at 1.1e-6.
+   7d. One dense QP of n=1,024, m=1,536 (``random_qp``) with phase 7's
+   settings through ``solve``, then ``QPDO`` (setup, a cold solve, a warm
+   re-solve after a 1% change of q): every Newton solve kernel 3's cluster
+   route (counted and required), SOLVED within the oracle at 1.1e-6,
+   iterations and wall times printed; the three infeasibility problems of
+   ``examples/infeasibility_tests.m`` through ``solve`` on the card and
+   the CPU under ``Settings(max_iter=100)`` and phase 7's settings, held
+   to [SOLVED, PRIMAL_INFEASIBLE, DUAL_INFEASIBLE].
 8. The stateful entry point: ``QPDO().setup(...)`` of one n=100, m=150
    problem with no device argument (so the card), solve, warm_start,
    update_q, update_bounds, solve; results on the card, same oracle.
@@ -231,9 +246,10 @@ The line before the last is a JSON object with one entry per kernel and
 dtype (formation, residuals and the ordered segment sum "ordered_sum" in
 both dtypes), and one per added route
 ("formation_split" in both dtypes, "kkt_solve_global",
-"chol_solve_global"), with its launches on the path that runs it first
-and on each path (phases 6b, 7b and 7c add "composition_large",
-"pallas_kkt_n300" and "tall_f32"; phase 15 adds "cr",
+"chol_solve_global", "kkt_solve_cluster", "chol_solve_cluster"), with its
+launches on the path that runs it first and on each path (phases 6b, 7b,
+7c and 7d add "composition_large", "pallas_kkt_n300", "tall_f32" and
+"pallas_kkt_n1024"; phase 15 adds "cr",
 "continuation", "structured", "sparse_layer", "sparse_applications" and
 "sparse_cg_f32"; phase 16 adds "batch_sharded_compact_gloo",
 "batch_sharded_gloo", "distribute_batch_gloo", "row_sharded_m100000",
@@ -276,13 +292,21 @@ L2_BYTES = 50e6
 # bit-for-bit check replaced (printed when it fails)
 FORMATION_TOL = {F32: 1e-5, F64: 1e-12}
 RESIDUAL_RTOL = {F32: 1e-6, F64: 1e-13}
-# kernels 3 and 4 on their global-memory route (phase 6b): (B, m, n) at
-# n = 256 and 512 with m = 1.5 n, the shape phase 7b's solve gives them, and
-# one large problem (n = 1024)
+# kernels 3 and 4 above the shared-memory route (phase 6b), on the route
+# that B and n select (cluster or global), the other route timed beside it:
+# (B, m, n) at n = 256 and 512 with m = 1.5 n, the shape phase 7b's solve
+# gives them, one and two large problems (n = 1024, a cluster of 16
+# blocks each), and one problem at n = 512 (a cluster of 8)
 LARGE_KKT_SHAPES = ((8, 384, 256), (8, 768, 512), (64, 450, 300),
-                    (1, 1536, 1024))
+                    (1, 1536, 1024), (2, 1536, 1024), (1, 768, 512))
+# phase 6b: one problem of odd n (B n^2 odd: K's share of the cluster
+# route's workspace is padded so that the panel buffer after it stays
+# aligned), on the route each kernel selects
+ODD_KKT_SHAPES = ((1, 332, 221), (1, 366, 243), (1, 1502, 1001))
 # phase 7b: the pallas_kkt path above the shared-memory route (B, n, m)
 PHASE7B = (64, 300, 450)
+# phase 7d: one large dense QP, random_qp(n, m, seed=0) (n, m)
+PHASE7D = (1024, 1536)
 
 
 def parse_args():
@@ -747,7 +771,7 @@ def main() -> int:
     require_launched(path_launches["composition"], "the composition path",
                      ("formation", F32), ("chol_solve", F32))
 
-    # ---- phase 6b: kernels 3 and 4 on their global-memory route ----
+    # ---- phase 6b: kernels 3 and 4 above the shared-memory route ----
     errs6b, times6b, path_launches["composition_large"] = phase6b(
         ff, fr, fk, tl, card)
 
@@ -757,6 +781,9 @@ def main() -> int:
     path_launches["pallas_kkt_n300"] = phase7b(pt, ff, fr, fk, card)
     # ---- phase 7c: one tall QP, kernel 1 in float32 with its rows split --
     path_launches["tall_f32"] = phase7c(pt, ff, fr, fk, card)
+    # ---- phase 7d: one large dense QP on kernel 3's cluster route; the
+    # infeasible problems ----
+    path_launches["pallas_kkt_n1024"] = phase7d(pt, ff, fr, fk, card)
 
     # ---- phase 8: the stateful entry point, on the card by default ----
     phase8(pt, fk)
@@ -817,6 +844,8 @@ def main() -> int:
                   ("formation_split", F64): "row_sharded_m100000",
                   ("kkt_solve_global", F32): "pallas_kkt_n300",
                   ("chol_solve_global", F32): "composition_large",
+                  ("kkt_solve_cluster", F32): "pallas_kkt_n1024",
+                  ("chol_solve_cluster", F32): "composition_large",
                   ("ordered_sum", F32): "sparse_cg_f32",
                   ("ordered_sum", F64): "sparse"}
     rows += route_rows(times6b, tall)
@@ -956,9 +985,9 @@ def phase5(ff, fr, fk, tl):
 def route_rows(times6b, tall):
     """Rows of the kernels line for the routes added to kernels 1, 3 and 4:
     kernel 1 with its rows split (headline: B=1, m=50,000, n=200, a rank's
-    rows of the row-sharded solve), kernel 3's global route (headline:
-    phase 7b's shape) and kernel 4's (headline: n=512, the composition
-    path); every timed shape under "shapes"."""
+    rows of the row-sharded solve), kernels 3 and 4 on the global route
+    (headline: phase 7b's shape) and on the cluster route (headline: one
+    problem of n=1024); every timed shape under "shapes"."""
     rows = []
     for t in tall:
         if t["m"] != TALL_FORMATION_M[0]:
@@ -975,25 +1004,32 @@ def route_rows(times6b, tall):
             "library_route": "torch.matmul + elementwise",
             "splits": t["splits"],
             "shapes": [u for u in tall if u["dtype"] == t["dtype"]]})
+    # headline shapes: kernels 3 and 4 on the global route at phase 7b's
+    # shape, on the cluster route at one problem of n=1024 (phase 7d's)
+    big = (1, PHASE7D[1], PHASE7D[0])
+    n300 = (PHASE7B[0], PHASE7B[2], PHASE7B[1])
     meta = {"kkt_solve_global": ("qpdo_tpu/ops/pallas_kkt.py:40",
-                                 PHASE7B[0], PHASE7B[2], PHASE7B[1],
-                                 "formation kernel + torch.linalg.cholesky_ex"
-                                 " + 2 solve_triangular"),
+                                 "kkt_solve_large.cu", n300),
             "chol_solve_global": ("qpdo_tpu/ops/pallas_kkt.py:209",
-                                  8, 768, 512,
-                                  "torch.linalg.cholesky_ex + 2 "
-                                  "solve_triangular")}
-    for name, (replaces, b, m, n, library) in meta.items():
-        head = times6b[(name, (b, m, n))]
+                                  "kkt_solve_large.cu", n300),
+            "kkt_solve_cluster": ("qpdo_tpu/ops/pallas_kkt.py:40",
+                                  "kkt_solve_cluster.cu", big),
+            "chol_solve_cluster": ("qpdo_tpu/ops/pallas_kkt.py:209",
+                                   "kkt_solve_cluster.cu", big)}
+    library = {"kkt_solve": "formation kernel + torch.linalg.cholesky_ex + 2 "
+                            "solve_triangular",
+               "chol_solve": "torch.linalg.cholesky_ex + 2 solve_triangular"}
+    for name, (replaces, source, shape) in meta.items():
+        head = times6b[(name, shape)]
         rows.append({
             "name": name, "dtype": "float32", "route": "cuda",
-            "source": "qpdo_tpu_torch/csrc/kkt_solve_large.cu",
+            "source": f"qpdo_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
             **{k: head[k] for k in ("ms", "device_ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "library_route_ms",
                                     "library_route_device_ms")},
-            "library_route": library,
+            "library_route": library[name.rsplit("_", 1)[0]],
             "shapes": [t for (nm, _), t in times6b.items() if nm == name]})
     return rows
 
@@ -1102,13 +1138,15 @@ def launch_counts(ff, fr, fk):
     counts[("kkt_solve", F32)] = fk.fused_kkt_solve.launches[F32]
     counts[("chol_solve", F32)] = fk.chol_solve_stacked.launches[F32]
     # the routes added for few problems with many rows (kernel 1) and for
-    # n above the shared-memory route (kernels 3 and 4)
+    # n above the shared-memory route (kernels 3 and 4: global memory, or a
+    # cluster a problem for a few problems)
     for dtype in (F32, F64):
         counts[("formation_split", dtype)] = \
             ff.fused_formation.split_launches[dtype]
-    counts[("kkt_solve_global", F32)] = fk.fused_kkt_solve.routes["global"]
-    counts[("chol_solve_global", F32)] = \
-        fk.chol_solve_stacked.routes["global"]
+    for route in ("global", "cluster"):
+        counts[(f"kkt_solve_{route}", F32)] = fk.fused_kkt_solve.routes[route]
+        counts[(f"chol_solve_{route}", F32)] = \
+            fk.chol_solve_stacked.routes[route]
     # the sparse path's sums into shared targets
     from qpdo_tpu_torch.ops import ordered_sum
 
@@ -1175,29 +1213,57 @@ def phase7(pt, ff, fr, fk, d, card):
     return counts
 
 
+def on_route(fk, name, route, args, sizes):
+    """Kernel ``name`` ("kkt_solve" or "chol_solve") on ``route`` whatever
+    B and n select, by the wrappers' own launch; counted on a stand-in,
+    not on the wrapper (a comparison, not a path)."""
+    import types
+
+    stand_in = types.SimpleNamespace(launches=collections.Counter(),
+                                     routes=collections.Counter())
+    return fk._launch(name, stand_in, args, sizes, route=route)
+
+
+def add_counts(total, counts):
+    for key, v in counts.items():
+        total[key] = total.get(key, 0) + v
+    return total
+
+
 def phase6b(ff, fr, fk, tl, card):
-    """Kernels 3 and 4 on their global-memory route, at LARGE_KKT_SHAPES:
-    each against its plain version (phase 6's tolerance), the composition
-    formation kernel -> scale -> kernel 4 -> unscale against kernel 3, and
-    times beside the library route and the bound.  Returns the max abs
-    errors by (route name, dtype), the times by (route name, shape), and the
-    launches of the composition at n = 512 (the path that runs kernel 4's
-    global route; no solver calls kernel 4)."""
+    """Kernels 3 and 4 above the shared-memory route, at LARGE_KKT_SHAPES:
+    the route that B and n select (cluster or global), through the
+    wrappers, against its plain version (phase 6's tolerance), twice for
+    the same bits, with failures left in their problem where B > 1; the
+    composition formation kernel -> scale -> kernel 4 -> unscale against
+    kernel 3; the other route (where n has a cluster) against the plain
+    version too; and the times of both routes beside the library route and
+    the bound.  Returns the max abs errors by (route name, dtype), the
+    times by (route name, shape), and the launches of the composition path
+    over all shapes (the path that runs kernel 4 above the shared-memory
+    route; no solver calls kernel 4)."""
+    from qpdo_tpu_torch import kernels
+
     tol = 2e-5
-    errs = {("kkt_solve_global", F32): 0.0, ("chol_solve_global", F32): 0.0}
-    times, composition = {}, None
+    errs = {(f"{name}_{route}", F32): 0.0 for name in ("kkt_solve", "chol_solve")
+            for route in ("global", "cluster")}
+    times, composition = {}, {}
+    for n in sorted({n for _, _, n in LARGE_KKT_SHAPES}):
+        print(f"phase 6b: n={n}: cluster of {kernels.cluster_size(n)} blocks, "
+              f"{kernels.max_active_clusters(n)} such clusters at once on "
+              f"{card}", flush=True)
 
     for shape in LARGE_KKT_SHAPES:
         b, m, n = shape
         Q, A, w, sigma, rhs = kkt_inputs(seed=n, shape=shape)
+        selected = {name: fk.kernel_route(name, b, n)
+                    for name in ("kkt_solve", "chol_solve")}
         reset_counts(ff, fr, fk)
         Khat, bhat, dinv = scaled_system(fk, ff, Q, A, w, sigma, rhs)
         x = fk.chol_solve_stacked(Khat, bhat)
         torch.cuda.synchronize()
-        if n == 512:
-            composition = launch_counts(ff, fr, fk)
-            require_launched(composition, "phase 6b composition",
-                             ("formation", F32), ("chol_solve_global", F32))
+        add_counts(composition, launch_counts(ff, fr, fk))
+        if shape == (8, 768, 512):
             # kernel 1 at this shape, against its plain version
             err, rel = check_formation(ff, F32, FORMATION_TOL[F32], b, m, n)
             errs[("formation", F32)] = err
@@ -1205,70 +1271,145 @@ def phase6b(ff, fr, fk, tl, card):
                   f"relative to max|K| {rel:.3e} (tol {FORMATION_TOL[F32]})")
         dx = fk.fused_kkt_solve(Q, A, w, sigma, rhs)
         torch.cuda.synchronize()
-        routes = (fk.fused_kkt_solve.routes["global"],
-                  fk.chol_solve_stacked.routes["global"])
+        routes = (fk.fused_kkt_solve.routes[selected["kkt_solve"]],
+                  fk.chol_solve_stacked.routes[selected["chol_solve"]])
         if routes != (1, 1):
-            raise AssertionError(f"phase 6b: n={n}: global route launches "
-                                 f"{routes}, not (1, 1)")
+            raise AssertionError(f"phase 6b: {shape}: {selected} route "
+                                 f"launches {routes}, not (1, 1)")
         ref = fk.reference_kkt_solve(Q, A, w, sigma, rhs)
         xref = fk.reference_chol_solve(Khat, bhat)
         again = (fk.fused_kkt_solve(Q, A, w, sigma, rhs),
                  fk.chol_solve_stacked(Khat, bhat))
         if not (torch.equal(again[0], dx) and torch.equal(again[1], x)):
-            raise AssertionError(f"phase 6b: n={n}: a second call gave "
+            raise AssertionError(f"phase 6b: {shape}: a second call gave "
                                  "other bits")
-        for name, got, want in (("kkt_solve_global", dx, ref),
-                                ("chol_solve_global", x, xref)):
-            errs[(name, F32)] = max(errs[(name, F32)],
-                                    (got - want).abs().max().item())
         if b > 1:
-            global_route_failures(fk, ff, (Q, A, w, sigma, rhs), dx, x, n)
-        for what, r in (("kkt_solve vs plain", rel_err(dx, ref)),
-                        ("chol_solve vs plain", rel_err(x, xref)),
-                        ("formation -> scale -> chol_solve -> unscale vs "
-                         "kkt_solve", rel_err(x * dinv, dx))):
-            print(f"phase 6b: n={n} (global route), B={b}, m={m}: {what}: "
-                  f"max error relative to max|dx| {r:.3e} (tol {tol})")
-            if not (r <= tol):
-                raise AssertionError(f"phase 6b: n={n}: {what}: {r:.3e} > "
-                                     f"{tol}")
-        for name, kernel, plain, library, single in (
-                ("kkt_solve_global",
-                 lambda: fk.fused_kkt_solve(Q, A, w, sigma, rhs),
-                 lambda: fk.reference_kkt_solve(Q, A, w, sigma, rhs),
-                 kkt_library_route(ff, tl, Q, A, w, sigma, rhs), None),
-                ("chol_solve_global", lambda: fk.chol_solve_stacked(Khat, bhat),
-                 lambda: fk.reference_chol_solve(Khat, bhat),
-                 chol_library_route(Khat, bhat),
-                 lambda: torch.linalg.solve(Khat, bhat))):
-            k1, l1 = timed(kernel, 20), timed(library, 20)
-            l2, k2 = timed(library, 20), timed(kernel, 20)
+            global_route_failures(fk, ff, (Q, A, w, sigma, rhs), dx, x, n,
+                                  selected)
+        got = {selected["kkt_solve"]: (dx, x)}
+        others = {"cluster": "global", "global": "cluster"}
+        other = others[selected["kkt_solve"]]
+        if kernels.cluster_size(n):
+            got[other] = (on_route(fk, "kkt_solve", other,
+                                   (Q, A, w, sigma, rhs), (b, m, n)),
+                          on_route(fk, "chol_solve", other, (Khat, bhat),
+                                   (b, n)))
+        for route, (dxr, xr) in got.items():
+            for name, g, want in (("kkt_solve", dxr, ref),
+                                  ("chol_solve", xr, xref)):
+                key = (f"{name}_{route}", F32)
+                errs[key] = max(errs[key], (g - want).abs().max().item())
+            for what, r in (("kkt_solve vs plain", rel_err(dxr, ref)),
+                            ("chol_solve vs plain", rel_err(xr, xref)),
+                            ("formation -> scale -> chol_solve -> unscale vs "
+                             "kkt_solve", rel_err(xr * dinv, dxr))):
+                print(f"phase 6b: {shape} {route} route"
+                      f"{' (selected)' if route == selected['kkt_solve'] else ''}"
+                      f": {what}: max error relative to max|dx| {r:.3e} "
+                      f"(tol {tol})")
+                if not (r <= tol):
+                    raise AssertionError(f"phase 6b: {shape} {route}: {what}:"
+                                         f" {r:.3e} > {tol}")
+        library = {"kkt_solve": kkt_library_route(ff, tl, Q, A, w, sigma, rhs),
+                   "chol_solve": chol_library_route(Khat, bhat)}
+        plain = {"kkt_solve": lambda: fk.reference_kkt_solve(Q, A, w, sigma,
+                                                             rhs),
+                 "chol_solve": lambda: fk.reference_chol_solve(Khat, bhat)}
+        call = {"kkt_solve": ((Q, A, w, sigma, rhs), (b, m, n)),
+                "chol_solve": ((Khat, bhat), (b, n))}
+        for name in ("kkt_solve", "chol_solve"):
+            args, sizes = call[name]
             elems, ops = kkt_work(name, b, m, n)
             bms, by = bound_ms(4 * elems, ops, PEAK_F32)
-            r = times[(name, shape)] = dict(
-                B=b, m=m, n=n, ms=min(k1, k2),
-                device_ms=device_ms(kernel, calls=20, replays=3),
-                plain_ms=timed(plain, 2), library_route_ms=min(l1, l2),
-                library_route_device_ms=device_ms(library, calls=20,
+            lib_ms = {}
+            for route in got:
+                kernel = (lambda name=name, route=route, args=args,
+                          sizes=sizes: on_route(fk, name, route, args, sizes))
+                if route == selected[name]:
+                    kernel = ((lambda: fk.fused_kkt_solve(*args))
+                              if name == "kkt_solve"
+                              else (lambda: fk.chol_solve_stacked(*args)))
+                k1, l1 = timed(kernel, 20), timed(library[name], 20)
+                l2, k2 = timed(library[name], 20), timed(kernel, 20)
+                lib_ms[route] = min(l1, l2)
+                times[(f"{name}_{route}", shape)] = dict(
+                    B=b, m=m, n=n, selected=route == selected[name],
+                    ms=min(k1, k2),
+                    device_ms=device_ms(kernel, calls=20, replays=3),
+                    bound_ms=bms, bound_by=by)
+            shared = dict(
+                plain_ms=timed(plain[name], 2), library_route_ms=min(
+                    lib_ms.values()),
+                library_route_device_ms=device_ms(library[name], calls=20,
                                                   replays=3),
-                library_ms=None if single is None else timed(single, 20),
-                bound_ms=bms, bound_by=by)
-            print(f"phase 6b: {name} float32 at B={b} m={m} n={n}: kernel "
-                  f"{r['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), on the card alone "
-                  f"{r['device_ms']:.4f} ms; plain version {r['plain_ms']:.2f}"
-                  f" ms; library route {r['library_route_ms']:.4f} ms, on the "
-                  f"card alone {r['library_route_device_ms']:.4f} ms"
-                  + ("" if single is None else
-                     f"; torch.linalg.solve {r['library_ms']:.4f} ms")
-                  + f"; bound {bms:.5f} ms (by {by}), on {card}", flush=True)
+                library_ms=(timed(lambda: torch.linalg.solve(Khat, bhat), 20)
+                            if name == "chol_solve" else None))
+            for route in got:
+                r = times[(f"{name}_{route}", shape)]
+                r.update(shared)
+                print(f"phase 6b: {name}_{route} float32 at B={b} m={m} n={n}"
+                      f"{' (selected)' if r['selected'] else ''}: kernel "
+                      f"{r['ms']:.4f} ms, on the card alone "
+                      f"{r['device_ms']:.4f} ms; plain version "
+                      f"{r['plain_ms']:.2f} ms; library route "
+                      f"{r['library_route_ms']:.4f} ms, on the card alone "
+                      f"{r['library_route_device_ms']:.4f} ms"
+                      + ("" if r["library_ms"] is None else
+                         f"; torch.linalg.solve {r['library_ms']:.4f} ms")
+                      + f"; bound {bms:.5f} ms (by {by}), on {card}",
+                      flush=True)
+            if len(got) == 2:
+                cl = times[(f"{name}_cluster", shape)]["device_ms"]
+                gl = times[(f"{name}_global", shape)]["device_ms"]
+                print(f"phase 6b: {name} at {shape}: cluster route {cl:.4f} "
+                      f"ms, global route {gl:.4f} ms on the card alone; "
+                      f"selected {selected[name]}", flush=True)
+    for shape in ODD_KKT_SHAPES:
+        odd_n_check(fk, ff, shape, errs, tol)
+    require_launched(composition, "phase 6b composition", ("formation", F32),
+                     ("chol_solve_cluster", F32), ("chol_solve_global", F32))
     return errs, times, composition
 
 
-def global_route_failures(fk, ff, args, dx, x, n):
-    """Problem 0 made indefinite and a NaN in problem 1's rhs, on the global
-    route: kernel and plain version agree on which problems come back
-    non-finite (problem 1 among them), and the other problems keep the
-    bits of the clean run ``dx`` (kernel 3) and ``x`` (kernel 4)."""
+def odd_n_check(fk, ff, shape, errs, tol):
+    """Both KKT kernels at one problem of odd n (``ODD_KKT_SHAPES``), on
+    the route each selects (counted there), against the plain version and
+    twice for the same bits; the errors go into ``errs``."""
+    b, m, n = shape
+    Q, A, w, sigma, rhs = kkt_inputs(seed=n, shape=shape)
+    Khat, bhat, _ = scaled_system(fk, ff, Q, A, w, sigma, rhs)
+    for name, wrapper, args, plain in (
+            ("kkt_solve", fk.fused_kkt_solve, (Q, A, w, sigma, rhs),
+             fk.reference_kkt_solve),
+            ("chol_solve", fk.chol_solve_stacked, (Khat, bhat),
+             fk.reference_chol_solve)):
+        route = fk.kernel_route(name, b, n)
+        before = wrapper.routes[route]
+        got = wrapper(*args)
+        again = wrapper(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        r = rel_err(got, want)
+        print(f"phase 6b: {name} at odd n {shape} on the {route} route: max "
+              f"error relative to max|dx| {r:.3e} (tol {tol}); same bits "
+              f"{torch.equal(got, again)}", flush=True)
+        if wrapper.routes[route] != before + 2:
+            raise AssertionError(f"phase 6b: {name} at {shape} did not take "
+                                 f"the {route} route")
+        if not (r <= tol and torch.equal(got, again)):
+            raise AssertionError(f"phase 6b: {name} at odd n {shape}: error "
+                                 f"{r:.3e} or other bits on a second call")
+        key = (f"{name}_{route}", F32)
+        if key in errs:
+            errs[key] = max(errs[key], (got - want).abs().max().item())
+
+
+def global_route_failures(fk, ff, args, dx, x, n, selected):
+    """Problem 0 made indefinite and a NaN in problem 1's rhs, on the
+    ``selected`` routes (global or cluster): kernel and plain version
+    agree on which problems come back non-finite (problem 1 among them),
+    and the other problems keep the bits of the clean run ``dx`` (kernel
+    3) and ``x`` (kernel 4)."""
     Q, A, w, sigma, rhs = args
     Qb, rb = Q.clone(), rhs.clone()
     Qb[0] = -Qb[0] - 1e3 * torch.eye(n, device=DEVICE)
@@ -1290,7 +1431,8 @@ def global_route_failures(fk, ff, args, dx, x, n):
                 and torch.equal(got[keep], clean[keep])):
             raise AssertionError(f"phase 6b: n={n}: {what}: a failure left "
                                  f"its problem (non-finite {lost})")
-        print(f"phase 6b: n={n}: {what}: non-finite problems {lost} (kernel "
+        print(f"phase 6b: n={n}, B={got.shape[0]}: {what} on the "
+              f"{selected[what]} route: non-finite problems {lost} (kernel "
               f"and plain version agree), the other {len(keep)} "
               "bit-identical to the clean run")
 
@@ -1304,7 +1446,7 @@ def phase7b(pt, ff, fr, fk, card):
     b, n, m = PHASE7B
     d = bench_problems(b, n, m, seed=11)
     settings = pallas_kkt_settings(pt)
-    route = linalg.fused_kkt_kernel_route(settings, n, DEVICE, F64)
+    route = linalg.fused_kkt_kernel_route(settings, b, n, DEVICE, F64)
     if route != "global":
         raise AssertionError(f"phase 7b: n={n} takes the {route} route")
     problems = pt.Problem(**{k: torch.as_tensor(v, device=DEVICE)
@@ -1345,6 +1487,103 @@ def phase7c(pt, ff, fr, fk, card):
                      ("formation_split", F32), ("residuals", F64))
     d = dict(Q=Q[None], q=q[None], A=A[None], l=l[None], u=u[None])
     check_solved(pt, d, res, "phase 7c (n=200, m=50,000)")
+    return counts
+
+
+def infeasible_problems():
+    """The three acceptance QPs of examples/infeasibility_tests.m (as
+    benchmarks/run.py:72-88 builds them), as numpy: (Q, q, A, l, u) of a
+    solvable, a primal infeasible and a dual infeasible problem."""
+    def problem(a, b, c):
+        return (np.array([[1.0, 0.0], [0.0, 0.0]]), np.array([1.0, c]),
+                np.array([[a, a], [1.0, 0.0], [0.0, 1.0]]),
+                np.array([-np.inf, 1.0, 1.0]), np.array([0.0, 3.0, b]))
+    return [problem(0.0, 3.0, 0.0), problem(1.0, 3.0, 0.0),
+            problem(0.0, np.inf, -1.0)]
+
+
+def phase7d(pt, ff, fr, fk, card):
+    """One large dense QP (``random_qp(*PHASE7D)``, n=1024, m=1536: phase
+    6b's largest shape as a solve) with phase 7's settings through
+    ``solve``, then through ``QPDO`` (setup, a cold solve, a warm re-solve
+    after a 1% change of q), every Newton solve kernel 3's cluster route;
+    then the three infeasibility problems through ``solve`` under
+    ``Settings(max_iter=100)`` and phase 7's settings, on the card and on
+    the CPU.  Returns the launches of the large solves."""
+    from qpdo_tpu_torch import kernels
+    from qpdo_tpu_torch.ops import linalg
+
+    n, m = PHASE7D
+    Q, q, A, l, u = random_qp(n, m, seed=0)
+    settings = pallas_kkt_settings(pt)
+    route = linalg.fused_kkt_kernel_route(settings, 1, n, DEVICE, F64)
+    if route != "cluster":
+        raise AssertionError(f"phase 7d: n={n} takes the {route} route")
+    d = dict(Q=Q[None], q=q[None], A=A[None], l=l[None], u=u[None])
+    problem = pt.make_problem(Q, q, A, l, u)
+    reset_counts(ff, fr, fk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pt.solve(problem, settings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(ff, fr, fk)
+    print(f"phase 7d: solve n={n} m={m}, kernel 3's {route} route (clusters "
+          f"of {kernels.cluster_size(n)} blocks): {wall:.2f} s, "
+          f"{int(res.info.iterations)} iterations, kernel launches "
+          f"{printable(counts)}, on {card}", flush=True)
+    require_launched(counts, "phase 7d", ("kkt_solve_cluster", F32),
+                     ("residuals", F64))
+    check_solved(pt, d, res, "phase 7d (solve)")
+
+    solver = pt.QPDO()
+    solver.setup(Q, q, A, l, u, settings)
+    walls = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = solver.solve()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    check_solved(pt, d, cold, "phase 7d (QPDO: setup, solve)")
+    rng = np.random.default_rng(12)
+    q2 = q + 0.01 * rng.standard_normal(n)
+    solver.warm_start(cold.x, cold.y)
+    solver.update_q(q2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = solver.solve()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    check_solved(pt, dict(d, q=q2[None]), warm,
+                 "phase 7d (QPDO: warm_start, update_q, solve)")
+    counts = launch_counts(ff, fr, fk)
+    require_launched(counts, "phase 7d (QPDO)", ("kkt_solve_cluster", F32),
+                     ("residuals", F64))
+    routes = dict(fk.fused_kkt_solve.routes)
+    print(f"phase 7d: QPDO iterations cold {int(cold.info.iterations)}, "
+          f"warm {int(warm.info.iterations)}; wall {walls[0]:.2f} s cold, "
+          f"{walls[1]:.2f} s warm; launches of the three solves "
+          f"{printable(counts)}, kernel 3 by route {routes}, on {card}",
+          flush=True)
+
+    expected = [pt.SOLVED, pt.PRIMAL_INFEASIBLE, pt.DUAL_INFEASIBLE]
+    for what, s in (("max_iter=100", pt.Settings(max_iter=100)),
+                    ("phase 7's settings", settings)):
+        statuses = {}
+        for device in (DEVICE, "cpu"):
+            statuses[device] = []
+            for args in infeasible_problems():
+                r = pt.solve(pt.make_problem(*args, device=device), s)
+                if device == DEVICE and not on_card(r.x, r.info.status_val):
+                    raise AssertionError("phase 7d: results are not on the "
+                                         "card")
+                statuses[device].append(int(r.info.status_val))
+        print(f"phase 7d: infeasibility problems under {what}: statuses "
+              f"{statuses[DEVICE]} on the card, {statuses['cpu']} on the CPU"
+              f" (expected {expected})", flush=True)
+        if statuses[DEVICE] != expected or statuses["cpu"] != expected:
+            raise AssertionError(f"phase 7d: infeasibility statuses under "
+                                 f"{what}: {statuses}")
     return counts
 
 
@@ -1854,17 +2093,19 @@ def phase13(pt, ff, fr, fk, d, card):
         raise AssertionError("phase 13: pallas_kkt at a float64 KKT dtype")
 
     # one past the shared-memory route of the fused kernel (once refused
-    # at setup): solved through its global route
+    # at setup): solved through the route that B=2 selects there
     d221 = bench_problems(2, 221, 332, seed=13)
     big = numpy_problems(pt, d221, DEVICE)
-    before = fk.fused_kkt_solve.routes["global"]
+    route = fk.kernel_route("kkt_solve", 2, 221)
+    before = fk.fused_kkt_solve.routes[route]
     res = pt.solve_batch(big, pallas_kkt_settings(pt))
     torch.cuda.synchronize()
-    launched = fk.fused_kkt_solve.routes["global"] - before
+    launched = fk.fused_kkt_solve.routes[route] - before
     print(f"phase 13: n=221, pallas_kkt, kkt_dtype float32: {launched} "
-          "launches of kernel 3's global route")
+          f"launches of kernel 3's {route} route")
     if launched <= 0:
-        raise AssertionError("phase 13: n=221 did not take the global route")
+        raise AssertionError(f"phase 13: n=221 did not take the {route} "
+                             "route")
     check_solved(pt, d221, res, "phase 13 (n=221, pallas_kkt)")
     return counts
 

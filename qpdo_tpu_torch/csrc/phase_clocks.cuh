@@ -12,6 +12,9 @@
 //    to slot i at once, so that a sequence of launches adds up there (the
 //    launches of a stream run one after another); the file's
 //    qpdo_*_phase_clocks_reset entry point sets the slots to 0 first.
+//  * QPDO_SPAN_IF(i, cond) is QPDO_SPAN for thread 0 of every block where
+//    cond holds (atomic adds): the blocks of one cluster, each adding the
+//    spans that it spends in a phase.
 // The marks cost a few cycles each and hold instructions in place: a marked
 // kernel computes the same values, not at the shipped kernel's time.
 
@@ -68,6 +71,16 @@ inline int reset_phase_clocks() {
     qpdo_span_last = qpdo_now;                                       \
   } while (0)
 
+#define QPDO_SPAN_IF(i, cond)                                        \
+  do {                                                               \
+    const long long qpdo_now = clock64();                            \
+    if (threadIdx.x == 0 && (cond))                                  \
+      atomicAdd(reinterpret_cast<unsigned long long*>(               \
+                    &qpdo_phase_clocks[i]),                          \
+                static_cast<unsigned long long>(qpdo_now - qpdo_span_last)); \
+    qpdo_span_last = qpdo_now;                                       \
+  } while (0)
+
 #else
 
 #define QPDO_MARK(i)
@@ -76,5 +89,6 @@ inline int reset_phase_clocks() {
 #define QPDO_LAPS_END()
 #define QPDO_SPAN_BEGIN()
 #define QPDO_SPAN(i)
+#define QPDO_SPAN_IF(i, cond)
 
 #endif

@@ -35,9 +35,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("formation.cu", "residuals.cu", "kkt_solve.cu", "kkt_solve_large.cu",
-           "ordered_sum.cu")
+           "kkt_solve_cluster.cu", "ordered_sum.cu")
 # included by the sources
-HEADERS = ("async_copy.cuh", "phase_clocks.cuh", "shared_grant.cuh")
+HEADERS = ("async_copy.cuh", "cluster.cuh", "phase_clocks.cuh",
+           "shared_grant.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +52,9 @@ _KERNELS = {
     "chol_solve": (3, 2, (torch.float32,)),                 # B, n
     "kkt_solve_global": (8, 4, (torch.float32,)),           # B, m, n, splits
     "chol_solve_global": (4, 2, (torch.float32,)),          # B, n
+    # B, m, n, splits, blocks of a cluster (0: the size for n)
+    "kkt_solve_cluster": (8, 5, (torch.float32,)),
+    "chol_solve_cluster": (4, 3, (torch.float32,)),         # B, n, cluster
     "ordered_sum": (4, 3, (torch.float32, torch.float64)),  # B, terms, targets
 }
 # The routes of the KKT kernels by n: K in the registers of one block up
@@ -160,6 +164,11 @@ def _load() -> ctypes.CDLL:
         fn = getattr(lib, f"qpdo_{name}_shared_max_n")
         fn.argtypes = []
         fn.restype = ctypes.c_int
+    for name in ("qpdo_kkt_cluster_size", "qpdo_kkt_cluster_max_active"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.qpdo_cluster_work_floats.argtypes = [ctypes.c_int] * 3
+    lib.qpdo_cluster_work_floats.restype = ctypes.c_longlong
     lib.qpdo_error_string.argtypes = [ctypes.c_int]
     lib.qpdo_error_string.restype = ctypes.c_char_p
     return lib
@@ -199,3 +208,32 @@ def shared_max_n(name: str) -> int:
     ("kkt_solve" or "chol_solve"): one problem's matrix must fit one
     block's shared memory."""
     return int(getattr(library(), f"qpdo_{name}_shared_max_n")())
+
+
+# The cluster route (csrc/kkt_solve_cluster.cu) keeps its layout in the
+# source: the sizes below are the library's answers.
+@functools.cache
+def cluster_size(n: int) -> int:
+    """The blocks of a cluster of the cluster route for n (8 or 16: the
+    smaller whose shared memory holds the problem's panels), 0 where
+    none does."""
+    return int(library().qpdo_kkt_cluster_size(n))
+
+
+def max_active_clusters(n: int, device: int | None = None) -> int:
+    """How many clusters of the cluster route for n the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once per device and n; 0
+    where n has no cluster."""
+    return _max_active(torch.cuda.current_device() if device is None
+                       else device, n)
+
+
+@functools.cache
+def _max_active(device: int, n: int) -> int:
+    with torch.cuda.device(device):
+        count = library().qpdo_kkt_cluster_max_active(n)
+    if count < 0:
+        raise KernelError(
+            f"cudaOccupancyMaxActiveClusters failed for n={n}: CUDA error "
+            f"{-count} ({library().qpdo_error_string(-count).decode()})")
+    return count

@@ -7,12 +7,14 @@ Replaces the TPU kernels of ``qpdo_tpu/ops/pallas_kkt.py``:
 ``pallas_chol_solve_stacked`` l.299).  On a CUDA tensor each wrapper
 launches its hand-written kernel (the headers of the sources say what
 bounds the kernels on the H100 and how the design answers), on the route
-that ``kernel_route`` picks from n alone: K factored in the registers of
+that ``kernel_route`` picks from B and n: K factored in the registers of
 one block up to n = 128 and in its shared memory up to 220 (239 for the
-Cholesky solve), both in ``qpdo_tpu_torch/csrc/kkt_solve.cu``, and in
-global memory above, formed by kernel 1 first
-(``qpdo_tpu_torch/csrc/kkt_solve_large.cu``); so any n is solved, as the
-TPU kernels' padded entries solve it.  On a CPU tensor a wrapper runs the
+Cholesky solve), both in ``qpdo_tpu_torch/csrc/kkt_solve.cu``; above,
+for a few problems, in the shared memory of a thread-block cluster a
+problem (``qpdo_tpu_torch/csrc/kkt_solve_cluster.cu``), else in global
+memory (``qpdo_tpu_torch/csrc/kkt_solve_large.cu``), K formed by kernel 1
+first on both; so any n is solved, as the TPU kernels' padded entries
+solve it.  On a CPU tensor a wrapper runs the
 plain version below, which has the same semantics step for step:
 
     K    = Q + sigma*I + A' diag(w) A
@@ -119,13 +121,31 @@ def _check(name, tensors, shapes):
         raise ValueError(f"{name}: unsupported device {first.device}")
 
 
-def kernel_route(name: str, n: int) -> str:
-    """The route of kernel ``name`` ("kkt_solve" or "chol_solve") for n:
-    "register", "shared" or "global"."""
+def kernel_route(name: str, B: int, n: int, device=None) -> str:
+    """The route of kernel ``name`` ("kkt_solve" or "chol_solve") for B
+    problems of n: "register", "shared", "cluster" or "global".  Above the
+    shared-memory route, "cluster" where B is at most the number of
+    clusters whose shared memory holds one problem's panels that the card
+    (``device``, an index; the current one by default) holds at once
+    (``kernels.max_active_clusters``, 0 where n has no cluster); else
+    "global".  The choice is made here, before the launch: a refused
+    cluster launch raises, it never takes another route.
+
+    The card's count is also where the cluster route stops winning: on an
+    NVIDIA H100 80GB HBM3 at 700 W (15 clusters of 8 blocks at once,
+    7 of 16; ``scripts/time_kkt_global.py``, ``device_ms`` of
+    fused_kkt_solve / chol_solve_stacked) the cluster route took 0.43462
+    / 0.20978 ms at B=15, n=512 against the global route's 0.57918 /
+    0.36172, but 0.64464 / 0.41055 at B=16, one cluster more than the
+    card holds at once, against 0.56857 / 0.36321; at n=1024, 0.98927 /
+    0.53174 at B=7 against 1.26452 / 0.82375, but 1.70168 / 1.06521 at
+    B=8 against 1.43317 / 0.85146."""
     if n <= kernels.REGISTER_MAX_N:
         return "register"
     if n <= kernels.SHARED_MAX_N[name]:
         return "shared"
+    if B <= kernels.max_active_clusters(n, device):
+        return "cluster"
     return "global"
 
 
@@ -136,32 +156,48 @@ def global_work_floats(B: int, n: int) -> int:
     return B * n * (n + 4)
 
 
-def _launch(name, wrapper, tensors, sizes):
+def cluster_work_floats(name: str, B: int, n: int) -> int:
+    """The floats of the cluster route's workspace (the source's
+    ``qpdo_cluster_work_floats``): for the fused solve K (B, n, n) as
+    kernel 1 forms it, then for both kernels each problem's buffer of
+    factored panels."""
+    return int(kernels.library().qpdo_cluster_work_floats(
+        B, n, int(name == "kkt_solve")))
+
+
+def _launch(name, wrapper, tensors, sizes, route=None):
     """Launch kernel ``name`` on float32 contiguous copies of ``tensors``,
-    on its route for n, and return its (B, n) output; never the plain
-    version.  The global route's workspace (``global_work_floats``) and,
-    for the fused solve, kernel 1's partial sums are allocated here."""
+    on its route for (B, n) (or on ``route``, as a timing compares two
+    routes), and return its (B, n) output; never the plain version.  The
+    global and cluster routes' workspaces (``global_work_floats``,
+    ``cluster_work_floats``) and, for the fused solve, kernel 1's partial
+    sums are allocated here."""
     args = [t.to(_F32).contiguous() for t in tensors]
     B, n = sizes[0], sizes[-1]
     device = args[0].device
     out = torch.empty((B, n), dtype=_F32, device=device)
-    route = kernel_route(name, n)
-    if route != "global":
+    if route is None:
+        route = kernel_route(name, B, n, device.index)
+    if route in ("register", "shared"):
         kernels.launch(name, _F32, (*args, out), sizes)
     else:
-        work = torch.empty(global_work_floats(B, n), dtype=_F32,
-                           device=device)
+        floats = (global_work_floats(B, n) if route == "global"
+                  else cluster_work_floats(name, B, n))
+        work = torch.empty(floats, dtype=_F32, device=device)
+        # the cluster size follows from n in the source (0)
+        extra = () if route == "global" else (0,)
         if name == "kkt_solve":
             m = sizes[1]
             splits = fused_formation.formation_splits(
                 B, m, n, fused_formation.sm_count(device.index))
             partial = (torch.empty((B, splits, n, n), dtype=_F32, device=device)
                        if splits > 1 else None)
-            kernels.launch("kkt_solve_global", _F32,
-                           (*args, out, work, partial), (B, m, n, splits))
+            kernels.launch(f"kkt_solve_{route}", _F32,
+                           (*args, out, work, partial),
+                           (B, m, n, splits, *extra))
         else:
-            kernels.launch("chol_solve_global", _F32, (*args, out, work),
-                           (B, n))
+            kernels.launch(f"chol_solve_{route}", _F32, (*args, out, work),
+                           (B, n, *extra))
     wrapper.launches[_F32] += 1
     wrapper.routes[route] += 1
     return out

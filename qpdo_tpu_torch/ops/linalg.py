@@ -61,11 +61,13 @@ def fused_kkt_route(device_type: str, kkt_dtype: torch.dtype) -> bool:
     return device_type == "cpu" or kkt_dtype == torch.float32
 
 
-def fused_kkt_kernel_route(settings, n: int, device, dtype: torch.dtype):
-    """The route of the fused KKT-solve kernel ("register", "shared" or
-    "global": ``fused_kkt.kernel_route``) that a dense solve of problems
-    of ``n`` variables, whose tensors are ``dtype`` on ``device``, takes
-    under ``settings``; None where the kernel does not run.  It runs for
+def fused_kkt_kernel_route(settings, B: int, n: int, device,
+                           dtype: torch.dtype):
+    """The route of the fused KKT-solve kernel ("register", "shared",
+    "cluster" or "global": ``fused_kkt.kernel_route``) that a dense solve
+    of ``B`` problems of ``n`` variables, whose tensors are ``dtype`` on
+    ``device``, takes under ``settings``; None where the kernel does not
+    run.  It runs for
     the direct Newton solve (every ``kkt_solver`` but "cg") under
     ``settings.pallas_kkt`` on a CUDA device where ``fused_kkt_route``
     holds: in the main phase when the KKT dtype resolves to float32, and
@@ -78,7 +80,8 @@ def fused_kkt_kernel_route(settings, n: int, device, dtype: torch.dtype):
     if settings.hybrid_warmup and dtype != torch.float32:
         kkt_dtypes.append(torch.float32)  # core.warmup_settings' phase
     if any(fused_kkt_route("cuda", k) for k in kkt_dtypes):
-        return kernel_route("kkt_solve", n)
+        index = torch.device(device).index
+        return kernel_route("kkt_solve", B, n, index)
     return None
 
 

@@ -14,10 +14,14 @@ m=150, n=100, float32) and with one block alone (B=1), and prints the cycles
 that thread 0 of block 0 took between the marks, with the SM clock.  Then
 it builds kkt_solve_large.cu (with formation.cu, which forms its K) and
 runs both of its entry points at the shapes of chip_smoke.py's phase 6b
-(``GLOBAL_SHAPES``), with the time of a call (CUDA events).  The
-marked kernels compute the same values; their times are not those of the
-shipped kernels (the marks cost a few cycles each and hold instructions in
-place).
+(``GLOBAL_SHAPES``), with the time of a call (CUDA events).  Last it
+builds kkt_solve_cluster.cu (with formation.cu) and runs both of its entry
+points at ``CLUSTER_SHAPES``: thread 0 of every block of problem 0's
+cluster adds its spans into ``CLUSTER_PHASES`` (the owner of a panel its
+owner-only phases), and the script prints them with their averages over
+the cluster's blocks and per pivot.  The marked kernels compute the same
+values; their times are not those of the shipped kernels (the marks cost
+a few cycles each and hold instructions in place).
 """
 
 from __future__ import annotations
@@ -54,6 +58,24 @@ GLOBAL_PHASES = ("panel: loads (warp 0)", "panel: diagonal block (warp 0)",
 # (B, m, n) of chip_smoke.py's LARGE_KKT_SHAPES
 GLOBAL_SHAPES = ((8, 384, 256), (8, 768, 512), (64, 450, 300),
                  (1, 1536, 1024))
+# kkt_solve_cluster.cu: spans of thread 0 of the blocks of problem 0's
+# cluster, summed over the blocks named and the panels (slot, name, who)
+CLUSTER_PHASES = (
+    (0, "load", "block 0"),
+    (1, "panel 0: factor, strip, two barriers", "block 0"),
+    (2, "staging the row operands", "every block"),
+    (3, "the diagonal block: its update and pivot chain", "the owner's warp 0"),
+    (4, "the trailing update", "the other blocks"),
+    (5, "the step's first cluster barrier", "every block"),
+    (6, "the strip", "every block"),
+    (7, "the step's second cluster barrier", "every block"),
+    (8, "R x = z: a panel's solve and the next columns' loads", "every block"),
+    (9, "R x = z: the cluster barriers", "every block"),
+    (10, "R x = z: the sums", "every block"),
+    (11, "the diagonal block's update", "the owner"),
+    (12, "R x = z: a panel's operands", "its owner's warp 0"),
+    (13, "R x = z: the 32-step chain", "its owner's warp 0"))
+CLUSTER_SHAPES = ((1, 1536, 1024), (1, 768, 512))
 
 
 def marked_library(*names: str) -> ctypes.CDLL:
@@ -149,6 +171,79 @@ def global_route(lib) -> None:
                   f" cycles)", flush=True)
 
 
+def cluster_route(lib) -> None:
+    """Both entry points of kkt_solve_cluster.cu at CLUSTER_SHAPES: the
+    spans of CLUSTER_PHASES for problem 0's cluster, each also as an
+    average over its blocks, the pivot chain per pivot (panels 1..), and
+    the time of a call (CUDA events, 20 calls) at the SM clock."""
+    from qpdo_tpu_torch.ops import fused_formation as ff
+    from qpdo_tpu_torch.ops import fused_kkt as fk
+
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.qpdo_kkt_solve_cluster_f32.argtypes = [ptr] * 8 + [i] * 5 + [ptr]
+    lib.qpdo_chol_solve_cluster_f32.argtypes = [ptr] * 4 + [i] * 3 + [ptr]
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = ff.sm_count(0)
+    for B, M, N in CLUSTER_SHAPES:
+        rng = np.random.default_rng(N)
+        Mx = rng.standard_normal((B, N, N))
+        arrays = (np.einsum("bij,bkj->bik", Mx, Mx) / N + 0.1 * np.eye(N),
+                  rng.standard_normal((B, M, N)), rng.random((B, M)),
+                  np.full(B, 1e-3), rng.standard_normal((B, N)))
+        Q, A, w, sigma, rhs = [
+            torch.as_tensor(a, dtype=torch.float32, device="cuda:0")
+            for a in arrays]
+        K = A.mT @ (w[..., None] * A) + Q + sigma[:, None, None] * torch.eye(
+            N, device="cuda:0")
+        d = torch.diagonal(K, dim1=-2, dim2=-1).rsqrt()
+        Khat = (K * d[:, :, None] * d[:, None, :]).contiguous()
+        bhat = (rhs * d).contiguous()
+        dx = torch.empty_like(rhs)
+        splits = ff.formation_splits(B, M, N, sms)
+        partial = (torch.empty((B, splits, N, N), dtype=torch.float32,
+                               device="cuda:0") if splits > 1 else None)
+        work = {name: torch.empty(fk.cluster_work_floats(name, B, N),
+                                  dtype=torch.float32, device="cuda:0")
+                for name in ("kkt_solve", "chol_solve")}
+        calls = {
+            "kkt_solve_cluster": lambda: lib.qpdo_kkt_solve_cluster_f32(
+                Q.data_ptr(), A.data_ptr(), w.data_ptr(), sigma.data_ptr(),
+                rhs.data_ptr(), dx.data_ptr(), work["kkt_solve"].data_ptr(),
+                None if partial is None else partial.data_ptr(), B, M, N,
+                splits, 0, stream),
+            "chol_solve_cluster": lambda: lib.qpdo_chol_solve_cluster_f32(
+                Khat.data_ptr(), bhat.data_ptr(), dx.data_ptr(),
+                work["chol_solve"].data_ptr(), B, N, 0, stream)}
+        C = kernels.cluster_size(N)
+        pivots = N - 32 if N > 32 else 1
+        for name, call in calls.items():
+            for _ in range(3):      # the last of three runs is printed
+                assert lib.qpdo_kkt_cluster_phase_clocks_reset() == 0
+                err = call()
+                torch.cuda.synchronize()
+                t = read_clocks(lib.qpdo_kkt_cluster_phase_clocks)
+            assert err == 0 and torch.isfinite(dx).all(), name
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                call()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 20
+            clock = smi("clocks.sm")
+            print(f"{name} (B={B}, m={M}, n={N}, a cluster of {C} blocks), "
+                  "problem 0: " + "; ".join(
+                      f"{ph} ({who}) {t[k]}"
+                      + (f" [{t[k] / C:.0f} a block]"
+                         if who == "every block" else "")
+                      for k, ph, who in CLUSTER_PHASES)
+                  + f"; pivot chain {t[3] / pivots:.0f} cycles a pivot; "
+                  f"SM clock {clock}; {ms:.4f} ms a call "
+                  f"({ms * 1e-3 * float(clock.split()[0]) * 1e6:.0f} cycles)",
+                  flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phase_clocks: needs a CUDA device", file=sys.stderr)
@@ -194,6 +289,7 @@ def main() -> int:
                           for k, name in enumerate(FORMATION_PHASES))
               + f"; total {sum(t[:len(FORMATION_PHASES)])} cycles")
     global_route(marked_library("kkt_solve_large.cu", "formation.cu"))
+    cluster_route(marked_library("kkt_solve_cluster.cu", "formation.cu"))
     return 0
 
 

@@ -55,7 +55,8 @@ def _rel(a, b):
                                    (4, 190, 129), (3, 20, 16), (3, 30, 17),
                                    (260, 150, 100), (2, 332, 221),
                                    (2, 384, 256), (2, 450, 300),
-                                   (2, 768, 512), (1, 1536, 1024)])
+                                   (2, 768, 512), (1, 1536, 1024),
+                                   (1, 332, 221), (1, 1502, 1001)])
 def test_kkt_solve_kernel_matches_plain(device, B, m, n):
     args = _kkt_args(device, B, m, n)
     before = fk.fused_kkt_solve.launches[torch.float32]
@@ -63,7 +64,7 @@ def test_kkt_solve_kernel_matches_plain(device, B, m, n):
     dx = fk.fused_kkt_solve(*args)
     ref = fk.reference_kkt_solve(*args)
     assert fk.fused_kkt_solve.launches[torch.float32] == before + 1
-    route = fk.kernel_route("kkt_solve", n)
+    route = fk.kernel_route("kkt_solve", B, n)
     assert fk.fused_kkt_solve.routes[route] == routes[route] + 1
     assert dx.is_cuda and dx.dtype == torch.float32 and dx.shape == (B, n)
     assert _rel(dx, ref) <= 1e-4
@@ -75,7 +76,8 @@ def test_kkt_solve_kernel_matches_plain(device, B, m, n):
 
 @pytest.mark.parametrize("B,n", [(8, 100), (5, 37), (2, 239), (4, 128),
                                  (4, 129), (3, 1), (2, 240), (2, 256),
-                                 (2, 300), (2, 512), (1, 1024)])
+                                 (2, 300), (2, 512), (1, 1024), (1, 243),
+                                 (1, 1001)])
 def test_chol_solve_kernel_matches_plain_and_the_fused_solve(device, B, n):
     Q, A, w, sigma, rhs = _kkt_args(device, B, n + n // 2, n)
     K = ff.fused_formation(A, w, Q, sigma)
@@ -113,19 +115,34 @@ def test_kkt_kernels_keep_failures_in_their_problem(device, n):
 
 def test_kkt_kernels_take_the_global_route_above_the_shared_limit(device):
     """The shared-memory route's limits are the kernels' own; one past
-    them both kernels solve through global memory, counted by route."""
+    them both kernels solve on the route that B selects (a cluster a
+    problem up to as many problems as the card holds clusters at once,
+    global memory past it), counted by route.  The source gives 8 blocks
+    a cluster up to n = 832, 16 up to 1,184, and the card holds at least
+    one of each at once."""
     assert {name: kernels.shared_max_n(name) for name in kernels.SHARED_MAX_N} \
         == kernels.SHARED_MAX_N == {"kkt_solve": 220, "chol_solve": 239}
-    before = (fk.fused_kkt_solve.routes["global"],
-              fk.chol_solve_stacked.routes["global"])
-    args = _kkt_args(device, 1, 8, 221)
-    dx = fk.fused_kkt_solve(*args)
-    x = fk.chol_solve_stacked(torch.eye(240, device=device)[None],
-                              torch.ones(1, 240, device=device))
-    assert torch.isfinite(dx).all() and torch.equal(x, torch.ones_like(x))
-    assert (fk.fused_kkt_solve.routes["global"],
-            fk.chol_solve_stacked.routes["global"]) == (before[0] + 1,
-                                                        before[1] + 1)
+    assert [kernels.cluster_size(n) for n in (240, 832, 833, 1184, 1185)] \
+        == [8, 8, 16, 16, 0]
+    assert kernels.max_active_clusters(512) >= 1
+    assert kernels.max_active_clusters(1024) >= 1
+    assert kernels.max_active_clusters(1185) == 0
+    limit = min(kernels.max_active_clusters(n) for n in (221, 240))
+    for B in (1, limit + 1):
+        routes = [fk.kernel_route(name, B, n)
+                  for name, n in (("kkt_solve", 221), ("chol_solve", 240))]
+        assert routes == (["cluster"] * 2 if B == 1 else ["global"] * 2)
+        before = (fk.fused_kkt_solve.routes[routes[0]],
+                  fk.chol_solve_stacked.routes[routes[1]])
+        args = _kkt_args(device, B, 8, 221)
+        dx = fk.fused_kkt_solve(*args)
+        x = fk.chol_solve_stacked(
+            torch.eye(240, device=device).expand(B, -1, -1),
+            torch.ones(B, 240, device=device))
+        assert torch.isfinite(dx).all() and torch.equal(x, torch.ones_like(x))
+        assert (fk.fused_kkt_solve.routes[routes[0]],
+                fk.chol_solve_stacked.routes[routes[1]]) == (before[0] + 1,
+                                                             before[1] + 1)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

@@ -56,9 +56,9 @@ def test_route_limits_are_the_kernels_limits(device):
 
 def test_a_problem_above_the_shared_route_solves_through_every_entry(device):
     """n = 221 with pallas_kkt and a float32 KKT dtype, once refused at
-    setup: every entry point solves it through the global route of the
-    fused kernel (counted), with the plain version's statuses on the
-    CPU."""
+    setup: every entry point solves it through a route of the fused
+    kernel above its shared-memory route (global or cluster, counted),
+    with the plain version's statuses on the CPU."""
     n = 221
     settings = pt.Settings(pallas_kkt=True, kkt_dtype="float32",
                            mu_min=1e-7, refine_steps=2)
@@ -66,6 +66,10 @@ def test_a_problem_above_the_shared_route_solves_through_every_entry(device):
     one = [t[0].cpu().numpy() for t in probs[:5]]
     cpu = pt.solve_batch(_family(2, n, 332, 1, torch.device("cpu")), settings)
     assert cpu.info.status == ["solved"] * 2
+
+    def above():
+        return (fk.fused_kkt_solve.routes["global"]
+                + fk.fused_kkt_solve.routes["cluster"])
 
     def qpdo():
         s = pt.QPDO()
@@ -77,13 +81,13 @@ def test_a_problem_above_the_shared_route_solves_through_every_entry(device):
                  lambda: pt.solve(pt.make_problem(*one, device=device),
                                   settings),
                  qpdo):
-        before = fk.fused_kkt_solve.routes["global"]
+        before = above()
         res = call()
-        assert fk.fused_kkt_solve.routes["global"] > before
+        assert above() > before
         assert res.x.is_cuda and set(res.info.status) == {"solved"}
-    before = fk.fused_kkt_solve.routes["global"]
+    before = above()
     x, y = pt.qp_solve(*(t[0] for t in probs[:5]), settings)
-    assert fk.fused_kkt_solve.routes["global"] > before
+    assert above() > before
     assert x.is_cuda and torch.isfinite(x).all() and torch.isfinite(y).all()
 
 

@@ -71,7 +71,8 @@ PKKT = pt.Settings(pallas_kkt=True)
 
 @pytest.mark.parametrize("settings,n,device,dtype,route", [
     # the fused kernel on the card in float32: global memory above the
-    # shared-memory route's limit (220), shared memory at it
+    # shared-memory route's limit (220) for a batch of 64 (above the
+    # cluster route's batches), shared memory at it
     (PKKT.replace(kkt_dtype="float32"), LIMIT + 1, "cuda", F64, "global"),
     (PKKT.replace(kkt_dtype="float32"), LIMIT, "cuda:0", F64, "shared"),
     (PKKT, LIMIT + 1, "cuda", F32, "global"),
@@ -84,9 +85,12 @@ PKKT = pt.Settings(pallas_kkt=True)
     (pt.Settings(kkt_dtype="float32"), 500, "cuda", F64, None),
 ], ids=["f32", "at_limit", "f32_state", "warmup", "f64", "cpu", "off"])
 def test_setup_refuses_a_problem_too_large_for_the_fused_kernel(
-        settings, n, device, dtype, route):
+        settings, n, device, dtype, route, monkeypatch):
     """No problem is refused any more (the name is kept from when n > 220
-    was): each case takes the route of kernel 3 that n gives it (none,
-    register, shared or global)."""
-    assert fused_kkt_kernel_route(settings, n, torch.device(device),
+    was): each case takes the route of kernel 3 that B = 64 problems of n
+    give it (none, register, shared or global) on a card that holds 15
+    clusters at once (a stand-in: the CPU has no card to ask)."""
+    monkeypatch.setattr(kernels, "max_active_clusters",
+                        lambda n, device=None: 15)
+    assert fused_kkt_kernel_route(settings, 64, n, torch.device(device),
                                   dtype) == route

@@ -35,7 +35,24 @@ SOURCE_OF = {"formation": "formation.cu", "residuals": "residuals.cu",
              "kkt_solve": "kkt_solve.cu", "chol_solve": "kkt_solve.cu",
              "kkt_solve_global": "kkt_solve_large.cu",
              "chol_solve_global": "kkt_solve_large.cu",
+             "kkt_solve_cluster": "kkt_solve_cluster.cu",
+             "chol_solve_cluster": "kkt_solve_cluster.cu",
              "ordered_sum": "ordered_sum.cu"}
+
+def card_clusters(monkeypatch):
+    """``kernels.max_active_clusters`` as an NVIDIA H100 answers it for
+    the cluster route (15 clusters of 8 blocks at once up to n = 832, 7 of
+    16 up to 1184, none above: csrc/kkt_solve_cluster.cu's sizes), since
+    the CPU has no card to ask; returns the n it was asked."""
+    asked = []
+
+    def active(n, device=None):
+        asked.append(n)
+        return 15 if n <= 832 else 7 if n <= 1184 else 0
+
+    monkeypatch.setattr(kernels, "max_active_clusters", active)
+    return asked
+
 
 _LAUNCH = re.compile(r"(\b[\w:]+(?:<[^<>;]*>)?)<<<([^;]*?)>>>\(([^;]*?)\);", re.S)
 _SHARED = re.compile(

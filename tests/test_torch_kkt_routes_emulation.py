@@ -27,7 +27,8 @@ from qpdo_tpu_torch import kernels
 from qpdo_tpu_torch.ops import fused_formation as ff
 from qpdo_tpu_torch.ops import fused_kkt as fk
 from test_torch_kernel_emulation import (_formation, _formation_args,
-                                         _kkt_args, _rel, _scaled, build)
+                                         _kkt_args, _rel, _scaled, build,
+                                         card_clusters)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32, F64 = torch.float32, torch.float64
@@ -113,12 +114,30 @@ def test_formation_splits_follow_the_shape_and_the_sm_count():
     assert ff.formation_splits(1, 50_000, 200, 2) == 1          # 3 blocks >= 2
 
 
-def test_kernel_route_follows_n():
-    assert [fk.kernel_route("kkt_solve", n) for n in (1, 128, 129, 220, 221)] \
-        == ["register", "register", "shared", "shared", "global"]
-    assert [fk.kernel_route("chol_solve", n) for n in (239, 240, 512)] \
-        == ["shared", "global", "global"]
+# (kernel, B, n, the route) on a card that holds 15 clusters of 8 blocks
+# and 7 of 16 at once (``card_clusters``)
+ROUTES = [
+    ("kkt_solve", 1, 1, "register"), ("kkt_solve", 300, 128, "register"),
+    ("kkt_solve", 1, 129, "shared"), ("kkt_solve", 1, 220, "shared"),
+    ("kkt_solve", 1, 221, "cluster"), ("kkt_solve", 1, 1024, "cluster"),
+    ("kkt_solve", 7, 1024, "cluster"), ("kkt_solve", 1, 1184, "cluster"),
+    ("kkt_solve", 1, 1185, "global"), ("kkt_solve", 64, 300, "global"),
+    ("kkt_solve", 15, 512, "cluster"), ("kkt_solve", 16, 512, "global"),
+    ("chol_solve", 1, 239, "shared"), ("chol_solve", 1, 240, "cluster"),
+    ("chol_solve", 8, 512, "cluster"), ("chol_solve", 8, 1024, "global")]
+
+
+def test_kernel_route_follows_n(monkeypatch):
+    """Register and shared-memory routes by n alone; above them a cluster
+    a problem where B is at most the clusters the card holds at once
+    (asked of the card for every n above the shared-memory route; none
+    above n = 1184), else global memory."""
     assert kernels.SHARED_MAX_N == {"kkt_solve": 220, "chol_solve": 239}
+    asked = card_clusters(monkeypatch)
+    for name, B, n, route in ROUTES:
+        del asked[:]
+        assert fk.kernel_route(name, B, n) == route, (name, B, n)
+        assert (asked == [n]) == (route in ("cluster", "global")), (name, B, n)
 
 
 @pytest.mark.parametrize("B,m,n,splits", [(2, 30, 40, 1), (1, 100, 100, 3)])
@@ -168,8 +187,9 @@ def test_global_route_keeps_failures_in_their_problem(lib):
         assert _rel(got[ok], want[ok]) <= 2e-5
 
 
-def test_fused_kkt_solve_above_the_shared_route_matches_jax():
-    """n = 230 (the card's global route; the JAX package pads it to 256):
+def test_fused_kkt_solve_above_the_shared_route_matches_jax(monkeypatch):
+    """n = 230 (the card's global route for B = 64; the JAX package pads
+    it to 256):
     one Newton system through the port's fused_kkt_solve on the CPU and
     through the JAX package's Pallas kernel in interpret mode, within 5e-6
     relative to max(1, max|dx|), as tests/test_torch_kkt.py holds the
@@ -184,7 +204,8 @@ def test_fused_kkt_solve_above_the_shared_route_matches_jax():
             (rng.random((B, m)) * 10.0).astype(np.float32),
             np.full(B, 1e-3, np.float32),
             rng.standard_normal((B, n)).astype(np.float32))
-    assert fk.kernel_route("kkt_solve", n) == "global"
+    card_clusters(monkeypatch)
+    assert fk.kernel_route("kkt_solve", 64, n) == "global"
     dx = fk.fused_kkt_solve(*[torch.from_numpy(a) for a in args]).numpy()
     jdx = np.asarray(jkkt.fused_kkt_solve(*[jnp.asarray(a) for a in args],
                                           interpret=True))
