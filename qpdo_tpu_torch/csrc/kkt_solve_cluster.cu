@@ -27,12 +27,19 @@
 // bulk of the work, is spread over the blocks of a cluster, whose shared
 // memory holds K (2.1 MB at n = 1024: 16 blocks of 227 KB), and the pivot
 // steps stay inside one launch; what is left on the critical path is the
-// busiest block's share of each trailing update (SIMT FP32: TF32 would
-// break the 2e-5 contract at n = 1024), two cluster barriers a panel and
-// the back substitution's chain.
+// busiest block's share of each trailing update, two cluster barriers and
+// the strip a panel, and the back substitution's chain.  The update runs
+// on the TF32 tensor cores in three passes (csrc/tf32x3.cuh): one SM's
+// mma.sync m16n8k8 .tf32 gives 658 multiply-adds a cycle at 8 warps, 219
+// in three passes against SIMT FP32's 128 (scripts/mma_tf32_probe.cu on an
+// NVIDIA H100 80GB HBM3 at 700 W).  One pass (TF32 alone) would break the
+// 2e-5 contract at n = 1024; three passes err like another float32 order
+// of summation (PERF.md §6 gives the errors measured on the card at the
+// shapes of chip_smoke.py's phase 6b).
 //
 // Design (kThreads = 256 a block, C = 8 or 16 blocks a cluster: the
-// smaller that holds K; 2 and 4 are instantiated for the CPU emulation):
+// smaller that holds K; 2 and 4 are instantiated for the CPU emulation
+// alone):
 //  * n is padded to np = 32 P rows with identity rows (no row of a panel is
 //    ragged); the right-hand side is column np of an augmented [K | b].
 //    Panel p (rows 32p .. 32p+31, columns 32p .. np and the b column) lives
@@ -51,17 +58,26 @@
 //    SM, and the route ran 1.41x slower (NVIDIA H100 80GB HBM3, 700 W,
 //    the variant timing of scripts/time_kkt_global.py; PERF.md).
 //  * Step k (panel k published, after a cluster barrier): each block
-//    stages panel k's columns over its own panels' rows (32 x 32 floats
-//    each: the row operand of the update).  In the owner of panel k+1, the
-//    block applies panel k's update to that panel's diagonal block (from
-//    the staged rows alone), then warp 0 factors it in registers (lane q
-//    column q; each pivot's row reaches the lanes by shuffles, the next
-//    row's first, so that no shared-memory round trip sits on the chain;
-//    the pivot scales and the reciprocal divisors of R'z = b kept aside)
-//    while warps 1..7 apply the update to the rest of that panel (also
-//    into the global buffer) and to the block's other panels: the
-//    look-ahead.  Every other block applies the update to its panels, a
-//    thread two columns of 32 rows in registers.  After a cluster barrier
+//    stages panel k's columns over its own panels' rows, negated, in the
+//    order of mma.sync's A fragments (32 x 32 floats a panel: the row
+//    operand of the update).  The update of a panel: a warp a column tile
+//    of 8 at a time, the panel's 32 rows as two m16 tiles, the row operand
+//    split into TF32 hi and lo once a warp and panel, the column operand
+//    (panel k's columns, from L2) split as it is read, the next tile's
+//    loads issued before this tile's products; the tile's update summed
+//    from 0 in three passes over four k-steps of 8 and added to the panel
+//    once in float32 (round to nearest: the tensor cores' own sums would
+//    otherwise round the panel twelve times a step).  In the owner of
+//    panel k+1, warp 0 applies panel k's update to that panel's diagonal
+//    block (both operands the staged rows) and factors it in registers
+//    (lane q column q; lane p's diagonal entry takes its own squares, so
+//    the next pivot reaches the lanes in one shuffle a pivot, and row p of
+//    R reaches them through shared memory off that chain; the pivot
+//    scales and the reciprocal divisors of R'z = b kept aside) while
+//    warps 1..7 apply the update to
+//    the rest of that panel (also into the global buffer) and to the
+//    block's other panels: the look-ahead.  Every other block applies the
+//    update to its panels on all eight warps.  After a cluster barrier
 //    the strip right of the new diagonal block, the b column (z) with it,
 //    is solved by every block of the cluster, a range of columns a block
 //    and a column a thread, in the global buffer; a second barrier
@@ -72,10 +88,13 @@
 //    32 x into every block's shared memory (distributed shared memory);
 //    after a cluster barrier every block takes them out of the rests of
 //    its earlier panels' rows (their columns loaded before the barrier).
-// Each entry of K is written by one block alone and takes its updates one
-// pivot row at a time, in the order of the plain version's recurrence: two
-// calls give the same bits.  A problem is one cluster, so a failed problem
-// (NaN or non-positive pivots) stays in its own blocks.
+// Each entry of K is written by one block alone, and its update of a step
+// is summed in a fixed order (the tensor cores' within a fragment, the
+// k-steps and passes in program order) and added once: two calls give the
+// same bits.  The order is not the plain version's recurrence, so the
+// result differs from it like another float32 order does (within 2e-5 of
+// max|dx|).  A problem is one cluster, so a failed problem (NaN or
+// non-positive pivots) stays in its own blocks.
 
 #include <cuda_runtime.h>
 
@@ -86,6 +105,7 @@
 #include "cluster.cuh"
 #include "phase_clocks.cuh"
 #include "shared_grant.cuh"
+#include "tf32x3.cuh"
 
 // kernel 1, formation.cu
 extern "C" {
@@ -102,7 +122,8 @@ constexpr int kPanel = 32;            // rows of a panel
 constexpr int kPad = 4;               // the b column and 3 of padding a row
 constexpr int kMaxOwned = 4;          // panels a block may hold
 constexpr int kRowsAWarp = 32 / kWarps;   // a panel's rows a warp sums
-static_assert(kThreads == 8 * kPanel, "a thread 4 entries of a diagonal block");
+static_assert(kThreads == 8 * kPanel,
+              "a thread a fragment slot of a staged row operand");
 constexpr float kTiny = 1e-30f;
 constexpr float kReg = 100.0f * 1.1920928955078125e-07f;   // 100 * eps32
 constexpr unsigned kFull = 0xffffffffu;
@@ -129,9 +150,19 @@ __device__ __forceinline__ float jacobi_scale(float d) {
   return (d > 0.0f) ? 1.0f / sqrtf(d) : 1.0f;
 }
 
-// a pivot's reciprocal square root, 1/sqrt(max(d, 1e-30)), NaN kept
+// a pivot's reciprocal square root, 1/sqrt(max(d, 1e-30)), NaN kept: the
+// argument is a normal number (or NaN), so the card's MUFU.RSQ alone, which
+// rsqrtf also gives it, without rsqrtf's scaling of subnormal arguments
+// (two instructions on the pivot chain)
 __device__ __forceinline__ float pivot_scale(float d) {
-  return rsqrtf(nan_max(d, kTiny));
+  const float x = nan_max(d, kTiny);
+#ifdef QPDO_CUDA_STUB
+  return rsqrtf(x);
+#else
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+#endif
 }
 
 // Where the panels of a problem of n rows live in a cluster of C blocks.
@@ -200,81 +231,175 @@ struct Layout {
   }
 };
 
-// Panel k's rank-32 update of one of the block's panels (rows 32p..,
-// stride S), column pairs gbegin .. gend - 1 (the last pair the b column
-// and one of padding), on threads first .. first + count - 1 of the block:
-// a thread two columns of the panel's 32 rows in registers, written back
-// to the panel and, where out is given, to the panel's place in the global
-// buffer.  stage: panel k's columns over the panel's rows (32 x 32, row q
-// of R first); src: panel k's column 32p in the global buffer (row q at
-// src + q * Sk).
-__device__ __forceinline__ void update_panel(float* Pp, int S, int gbegin,
-                                             int gend, const float* stage,
+// The row operand of panel k's update of one of the block's panels (rows
+// 32p .. 32p + 31): A[i][q] = -R_k[q][32p + i], staged in the order of the
+// A fragments of m16n8k8 (csrc/tf32x3.cuh), 1024 floats: fragment (mt,
+// ks) of lane l at ((mt * 4 + ks) * 32 + l) * 4, its a[0..3] (rows 16 mt
+// .., columns 8 ks ..); a warp loads a fragment as one Float4 and splits it
+// into TF32 hi and lo itself.
+constexpr int kStage = kPanel * kPanel;
+
+// The A fragments of a staged row operand, split (hi, lo): [ks][mt].
+struct RowOperand {
+  float hi[4][2][4], lo[4][2][4];
+};
+
+__device__ __forceinline__ void load_row_operand(const float* stage,
+                                                 RowOperand& A) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const Float4 v = *reinterpret_cast<const Float4*>(
+          stage + ((mt * 4 + ks) * 32 + lane) * 4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(v.v[q], A.hi[ks][mt][q], A.lo[ks][mt][q]);
+    }
+}
+
+// Panel k's rank-32 update of one of the block's panels (rows 32p.., stride
+// S), column tiles of 8 tbegin .. tend - 1 (the last one ragged: the b
+// column and 3 of padding), on wcount warps of the block, the caller the
+// w-th of them: a warp a tile at a time, the panel's 32 rows as two m16
+// tiles, P -= R_k[:, 32p + i]' R_k[:, 32p + c] in three TF32 passes with
+// float32 sums over the four k-steps of 8, summed from 0 and added to the
+// panel once; the panel read from and written back in float2 pairs and, where
+// out is given, also written to the panel's place in the global buffer.
+// A: the staged row operand, split; src: panel k's column 32p in the
+// global buffer (row q at src + q Sk), the column operand, split as it is
+// read, the next tile's loads issued before this tile's products.
+__device__ __forceinline__ void update_panel(float* Pp, int S, int tbegin,
+                                             int tend, const RowOperand& A,
                                              const float* src, int Sk,
-                                             float* out, int first,
-                                             int count) {
-  for (int t = gbegin + static_cast<int>(threadIdx.x) - first; t < gend;
-       t += count) {
-    const int c = 2 * t;
-    float a0[kPanel], a1[kPanel];
+                                             float* out, int w, int wcount) {
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  float x[4][2];                     // the column operand of the next tile
+  auto load = [&](int nt) {
+    const int c = 8 * nt + gid;
 #pragma unroll
-    for (int i = 0; i < kPanel; ++i) {
-      const float2 v = *reinterpret_cast<const float2*>(Pp + i * S + c);
-      a0[i] = v.x;
-      a1[i] = v.y;
-    }
-#pragma unroll 8
-    for (int q = 0; q < kPanel; ++q) {
-      const float2 x = __ldcg(reinterpret_cast<const float2*>(src + q * Sk + c));
+    for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-      for (int i4 = 0; i4 < kPanel / 4; ++i4) {
-        const Float4 s = *reinterpret_cast<const Float4*>(stage + q * kPanel + 4 * i4);
+      for (int h = 0; h < 2; ++h)
+        x[ks][h] = (c < S) ? __ldcg(src + (8 * ks + tig + 4 * h) * Sk + c) : 0.0f;
+  };
+  int nt = tbegin + w;
+  if (nt < tend) load(nt);
+  for (; nt < tend; nt += wcount) {
+    float bhi[4][2], blo[4][2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          a0[4 * i4 + e] -= s.v[e] * x.x;
-          a1[4 * i4 + e] -= s.v[e] * x.y;
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) split_tf32(x[ks][h], bhi[ks][h], blo[ks][h]);
+    if (nt + wcount < tend) load(nt + wcount);
+    float upd[2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma_tf32x3(upd[mt], A.hi[ks][mt], A.lo[ks][mt], bhi[ks], blo[ks]);
+    const int c = 8 * nt + 2 * tig;   // S - c is even: c + 1 < S too
+    if (c < S) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 16 * mt + gid + 8 * h;
+          float2 v = *reinterpret_cast<const float2*>(Pp + i * S + c);
+          v.x += upd[mt][2 * h];
+          v.y += upd[mt][2 * h + 1];
+          *reinterpret_cast<float2*>(Pp + i * S + c) = v;
+          if (out != nullptr) *reinterpret_cast<float2*>(out + i * S + c) = v;
         }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kPanel; ++i) {
-      float2 v;
-      v.x = a0[i];
-      v.y = a1[i];
-      *reinterpret_cast<float2*>(Pp + i * S + c) = v;
-      if (out != nullptr) *reinterpret_cast<float2*>(out + i * S + c) = v;
     }
   }
+}
+
+// Panel k's update of the 32x32 diagonal block of the block's panel at Pp
+// (stride S) from its staged row operand alone, by one warp: its column
+// operand is the same rows (B[q][c] = -A[c][q]), so tile (mt, nt) takes
+// B's fragments from the A fragments of m-tile nt / 2, negated; the six
+// tiles on and above the diagonal (the two below it are never read as
+// values).
+__device__ __forceinline__ void update_diagonal(float* Pp, int S,
+                                                const float* stage) {
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 2 * mt; nt < 4; ++nt) {
+      const int mb = nt >> 1, odd = nt & 1;
+      float acc[4], upd[4] = {};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            Pp + (16 * mt + gid + 8 * h) * S + 8 * nt + 2 * tig);
+        acc[2 * h] = v.x;
+        acc[2 * h + 1] = v.y;
+      }
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const Float4 a = *reinterpret_cast<const Float4*>(
+            stage + ((mt * 4 + ks) * 32 + lane) * 4);
+        const float* o = stage + ((mb * 4 + ks) * 32 + lane) * 4 + odd;
+        float ahi[4], alo[4], bhi[2], blo[2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(a.v[q], ahi[q], alo[q]);
+        split_tf32(-o[0], bhi[0], blo[0]);
+        split_tf32(-o[2], bhi[1], blo[1]);
+        mma_tf32x3(upd, ahi, alo, bhi, blo);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(Pp + (16 * mt + gid + 8 * h) * S + 8 * nt + 2 * tig) =
+            make_float2(acc[2 * h] + upd[2 * h], acc[2 * h + 1] + upd[2 * h + 1]);
+    }
 }
 
 // Warp 0: the 32x32 diagonal block of the panel at Pp (stride S) factored
 // in place, lane q holding column q in registers; its rows also go to G
 // (the panel's place in the global buffer) and the pivot scales rp and the
 // reciprocal divisors 1/R[p][p] (clamped at 1e-30 for kClampDiv) of R'z = b
-// to scales[0..31] and scales[32..63].  Each pivot's row reaches the lanes
-// by shuffles, the next row's first (it carries the next pivot), so that
-// no shared-memory round trip and no branch sits on the chain.  Only the
-// upper part of the block is meaningful (the rest is never read as a
-// value).
+// to scales[0..31] and scales[32..63].  The pivot chain is lane p's own:
+// its column's diagonal entry takes the updates R[q][p]^2 from its own
+// registers, so the next pivot reaches the other lanes in one shuffle a
+// pivot (the chain: the shuffle, the scale, a multiply and a fused
+// multiply-add).  Row p of R reaches the lanes for the rest of the update
+// through shared memory (rows: 32 rows of stride kRs, one a pivot, read as
+// broadcast Float4 loads), off the chain.  Only the upper part of the block
+// is meaningful (the rest is never read as a value).
 template <bool kClampDiv>
 __device__ __forceinline__ void factor_diagonal(float* Pp, int S, float* G,
-                                                float* scales) {
+                                                float* scales, float* rows) {
   const int lane = threadIdx.x & 31;
   float col[kPanel];                   // col[i]: row i of column lane
 #pragma unroll
   for (int i = 0; i < kPanel; ++i) col[i] = Pp[i * S + lane];
   float dq = 0.0f, rpq = 0.0f;         // the pivot of row lane, its scale
+  float d = __shfl_sync(kFull, col[0], 0);
 #pragma unroll
   for (int p = 0; p < kPanel; ++p) {
-    const float d = __shfl_sync(kFull, col[p], p);
     const float rp = pivot_scale(d);
     const float rq = col[p] * rp;      // R[p][lane], lane >= p
     col[p] = rq;
     dq = (lane == p) ? d : dq;
     rpq = (lane == p) ? rp : rpq;
+    if (p + 1 < kPanel) {
+      // lane p + 1's next pivot: its own entry less its own square, the
+      // value the update below gives it
+      d = __shfl_sync(kFull, fmaf(-rq, rq, col[p + 1]), p + 1);
+      rows[p * kRs + lane] = rq;
+      __syncwarp();
 #pragma unroll
-    for (int j = p + 1; j < kPanel; ++j)
-      col[j] -= __shfl_sync(kFull, rq, j) * rq;
+      for (int q4 = (p + 1) / 4; q4 < kPanel / 4; ++q4) {
+        const Float4 v = *reinterpret_cast<const Float4*>(rows + p * kRs + 4 * q4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q4 + e > p) col[4 * q4 + e] = fmaf(-v.v[e], rq, col[4 * q4 + e]);
+      }
+    }
   }
   float diag = dq * rpq;
   if (kClampDiv) diag = nan_max(diag, kTiny);
@@ -346,6 +471,7 @@ cluster_kernel(const float* K, const float* __restrict__ rhs,
   auto solve_strip = [&](int p) {
     const int S = L.stride(p);
     const int bcol = np - kPanel * p;
+    float* G = gpanel(p);
     constexpr int kEach = (kPanel * kRs + 2 * kPanel + kThreads - 1) / kThreads;
     float v[kEach];
 #pragma unroll
@@ -362,7 +488,6 @@ cluster_kernel(const float* K, const float* __restrict__ rhs,
       if (e < kPanel * kRs + 2 * kPanel) Rl[e] = v[j];
     }
     __syncthreads();
-    float* G = gpanel(p);
     // a contiguous range of columns a block
     const int each = (S - kPanel + C - 1) / C;
     const int end = kPanel + (r + 1) * each < S ? kPanel + (r + 1) * each : S;
@@ -427,7 +552,7 @@ cluster_kernel(const float* K, const float* __restrict__ rhs,
     float* Pp = panel(0);
     const int S = L.stride(0);
     if (warp == 0) {
-      factor_diagonal<kClampDiv>(Pp, S, gpanel(0), gscales(0));
+      factor_diagonal<kClampDiv>(Pp, S, gpanel(0), gscales(0), Rl);
     } else {
       for (int i = 0; i < kPanel; ++i)
         for (int c = kPanel + tid - 32; c < S; c += kThreads - 32)
@@ -442,77 +567,65 @@ cluster_kernel(const float* K, const float* __restrict__ rhs,
   for (int k = 0; k + 1 < P; ++k) {
     const int Sk = L.stride(k);
     const float* Xk = gpanel(k);
-    // the row operands of the block's panels below k (a thread's loads
-    // issued together)
-    for (int t = 0; t < nown; ++t) {
-      const int p = L.panel_of(r, t);
-      if (p <= k) continue;
-      constexpr int kEach = kPanel * kPanel / kThreads;
-      float v[kEach];
+    // the row operands of the block's panels below k, in fragment order
+    // (a thread one fragment slot of each panel, its loads issued together)
+    {
+      const int mt = tid >> 7, ks = (tid >> 5) & 3;
+      const int gid = lane >> 2, tig = lane & 3;
+      for (int t = 0; t < nown; ++t) {
+        const int p = L.panel_of(r, t);
+        if (p <= k) continue;
+        const float* src = Xk + kPanel * (p - k);
+        Float4 v;
 #pragma unroll
-      for (int j = 0; j < kEach; ++j) {
-        const int e = tid + j * kThreads;
-        v[j] = __ldcg(gpanel(k) + (e / kPanel) * Sk + kPanel * (p - k) + (e % kPanel));
+        for (int q = 0; q < 4; ++q)
+          v.v[q] = -__ldcg(src + (8 * ks + tig + 4 * (q >> 1)) * Sk + 16 * mt + gid + 8 * (q & 1));
+        *reinterpret_cast<Float4*>(stage + t * kStage + 4 * tid) = v;
       }
-#pragma unroll
-      for (int j = 0; j < kEach; ++j) stage[t * kPanel * kPanel + tid + j * kThreads] = v[j];
     }
     __syncthreads();
-    QPDO_SPAN_IF(2, clocked);          // staging
+    QPDO_SPAN_STEP(2, clocked, k);          // staging
     const int next = k + 1;
-    // panel k's update of the block's t-th panel, column pairs begin ..
-    // end - 1 (end < 0: all of them and the b column's)
-    auto update = [&](int t, int begin, int end, float* out, int first,
-                      int count) {
+    // panel k's update of the block's t-th panel, column tiles begin ..
+    // (the b column's tile last), on count warps, this one the w-th
+    auto update = [&](int t, int begin, float* out, int w, int count) {
       const int p = L.panel_of(r, t);
-      const int groups = (np - kPanel * p) / 2 + 1;
-      update_panel(panel(p), L.stride(p), begin, end < 0 ? groups : end,
-                   stage + t * kPanel * kPanel, Xk + kPanel * (p - k), Sk,
-                   out, first, count);
+      RowOperand A;
+      load_row_operand(stage + t * kStage, A);
+      update_panel(panel(p), L.stride(p), begin, (np - kPanel * p) / 8 + 1, A,
+                   Xk + kPanel * (p - k), Sk, out, w, count);
     };
     if (L.owner(next) == r) {
-      // the look-ahead: the next panel's diagonal block takes panel k's
-      // update (both of its operands are the staged rows), then warp 0
-      // factors it while warps 1.. update the rest of the next panel (into
-      // the global buffer too, for the strip) and the block's other panels
+      // the look-ahead: warp 0 applies panel k's update to the next
+      // panel's diagonal block (both of its operands are the staged rows)
+      // and factors it while warps 1.. update the rest of the next panel
+      // (into the global buffer too, for the strip) and the block's other
+      // panels
       const int tn = L.slot(next);
-      {
-        float* D = panel(next);
-        const int Sn = L.stride(next);
-        const float* st = stage + tn * kPanel * kPanel;
-        const int i = tid / 8, j = 4 * (tid % 8);
-        Float4 acc = *reinterpret_cast<const Float4*>(D + i * Sn + j);
-#pragma unroll 8
-        for (int q = 0; q < kPanel; ++q) {
-          const float a = st[q * kPanel + i];
-          const Float4 x = *reinterpret_cast<const Float4*>(st + q * kPanel + j);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc.v[e] -= a * x.v[e];
-        }
-        *reinterpret_cast<Float4*>(D + i * Sn + j) = acc;
-      }
-      __syncthreads();
-      QPDO_SPAN_IF(11, clocked);       // the diagonal block's update
       if (warp == 0) {
+        update_diagonal(panel(next), L.stride(next), stage + tn * kStage);
+        __syncwarp();
+        QPDO_SPAN_STEP(11, clocked, k);     // the diagonal block's update
         factor_diagonal<kClampDiv>(panel(next), L.stride(next), gpanel(next),
-                                   gscales(next));
-        QPDO_SPAN_IF(3, clocked);      // the diagonal block (warp 0)
+                                   gscales(next), Rl);
+        QPDO_SPAN_STEP(3, clocked, k);      // the diagonal block (warp 0)
       } else {
-        update(tn, kPanel / 2, -1, gpanel(next), 32, kThreads - 32);
+        update(tn, kPanel / 8, gpanel(next), warp - 1, kWarps - 1);
         for (int t = tn + 1; t < nown; ++t)
-          update(t, 0, -1, nullptr, 32, kThreads - 32);
+          update(t, 0, nullptr, warp - 1, kWarps - 1);
+        QPDO_SPAN_STEP_BY(14, clocked, k, 32);   // the owner's update (warp 1)
       }
     } else {
       for (int t = 0; t < nown; ++t)
-        if (L.panel_of(r, t) > k) update(t, 0, -1, nullptr, 0, kThreads);
-      QPDO_SPAN_IF(4, clocked);        // the other blocks' update
+        if (L.panel_of(r, t) > k) update(t, 0, nullptr, warp, kWarps);
+      QPDO_SPAN_STEP(4, clocked, k);        // the other blocks' update
     }
     cluster_sync();
-    QPDO_SPAN_IF(5, clocked);          // the first barrier of the step
+    QPDO_SPAN_STEP(5, clocked, k);          // the first barrier of the step
     solve_strip(next);
-    QPDO_SPAN_IF(6, clocked);          // the strip
+    QPDO_SPAN_STEP(6, clocked, k);          // the strip
     cluster_sync();
-    QPDO_SPAN_IF(7, clocked);          // the second barrier of the step
+    QPDO_SPAN_STEP(7, clocked, k);          // the second barrier of the step
   }
 
   // R x = z, a panel at a time from the last.  rest holds z less the sums
@@ -538,7 +651,7 @@ cluster_kernel(const float* K, const float* __restrict__ rhs,
       const float inv = 1.0f / diag;
       float acc = sums[L.slot(k) * kPanel + lane];
       float xq = acc * inv;
-      QPDO_SPAN_IF(12, clocked);       // the triangle's operands
+      QPDO_SPAN_STEP(12, clocked, k);       // the triangle's operands
 #pragma unroll
       for (int p = kPanel - 1; p >= 0; --p) {
         const float xp = __shfl_sync(kFull, acc * inv, p);
@@ -546,7 +659,7 @@ cluster_kernel(const float* K, const float* __restrict__ rhs,
         if (lane == p) xq = xp;
       }
       // the chain (the test on xq keeps the mark after it)
-      QPDO_SPAN_IF(13, clocked && xq != 1.2345f);
+      QPDO_SPAN_STEP(13, clocked && xq != 1.2345f, k);
       for (int q = 0; q < C; ++q)
         cluster_map(xall, static_cast<unsigned>(q))[kPanel * k + lane] = xq;
       const int i = kPanel * k + lane;
@@ -565,9 +678,9 @@ cluster_kernel(const float* K, const float* __restrict__ rhs,
                                    kPanel * (k - p) + lane)
                           : 0.0f;
     }
-    QPDO_SPAN_IF(8, clocked);          // the triangle's solve
+    QPDO_SPAN_STEP(8, clocked, k);          // the triangle's solve
     cluster_sync();
-    QPDO_SPAN_IF(9, clocked);          // the back substitution's barriers
+    QPDO_SPAN_STEP(9, clocked, k);          // the back substitution's barriers
     if (k == 0) break;
     // x of panel k times those columns out of the rows' rests, a fixed
     // reduction tree
@@ -585,7 +698,7 @@ cluster_kernel(const float* K, const float* __restrict__ rhs,
       }
     }
     __syncthreads();
-    QPDO_SPAN_IF(10, clocked);         // the sums
+    QPDO_SPAN_STEP(10, clocked, k);         // the sums
   }
 }
 
@@ -684,8 +797,13 @@ cudaError_t dispatch(int C, const float* K, const float* rhs, float* dx,
                      bool dependent) {
   if (!aligned(gbuf)) return cudaErrorInvalidValue;
   switch (C) {
+#ifdef QPDO_CUDA_STUB
+    // clusters of 2 and 4 blocks reach every branch of the emulation at
+    // small n; the card takes 8 or 16 (cluster_size), and is spared their
+    // compilation
     case 2: return launch_cluster<2, kJacobi, kClampDiv>(K, rhs, dx, gbuf, B, n, stream, dependent);
     case 4: return launch_cluster<4, kJacobi, kClampDiv>(K, rhs, dx, gbuf, B, n, stream, dependent);
+#endif
     case 8: return launch_cluster<8, kJacobi, kClampDiv>(K, rhs, dx, gbuf, B, n, stream, dependent);
     case 16: return launch_cluster<16, kJacobi, kClampDiv>(K, rhs, dx, gbuf, B, n, stream, dependent);
     default: return cudaErrorInvalidValue;
@@ -737,7 +855,8 @@ extern "C" int qpdo_kkt_cluster_max_active(int n) {
 
 // work: qpdo_cluster_work_floats(B, n, 1) floats, 16-byte aligned; partial:
 // kernel 1's partial sums, (B, S, n, n) floats for splits S > 1, else null;
-// cluster: the blocks of a cluster (0: qpdo_kkt_cluster_size(n)).
+// cluster: the blocks of a cluster (0: qpdo_kkt_cluster_size(n); 2 and 4
+// only in the CPU emulation).
 extern "C" int qpdo_kkt_solve_cluster_f32(const void* Q, const void* A,
                                           const void* w, const void* sigma,
                                           const void* rhs, void* dx, void* work,
@@ -776,5 +895,11 @@ extern "C" int qpdo_kkt_cluster_phase_clocks(long long* out) {
 
 extern "C" int qpdo_kkt_cluster_phase_clocks_reset() {
   return reset_phase_clocks();
+}
+
+// the spans of each block of problem 0's cluster, step by step
+// ([block][step][slot], kStepClockBlocks x kStepClockSteps x kPhaseClocks)
+extern "C" int qpdo_kkt_cluster_block_phase_clocks(long long* out) {
+  return read_step_clocks(out);
 }
 #endif

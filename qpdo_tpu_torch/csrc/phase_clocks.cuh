@@ -15,6 +15,13 @@
 //  * QPDO_SPAN_IF(i, cond) is QPDO_SPAN for thread 0 of every block where
 //    cond holds (atomic adds): the blocks of one cluster, each adding the
 //    spans that it spends in a phase.
+//  * QPDO_SPAN_STEP(i, cond, step) is QPDO_SPAN_IF that also keeps the span
+//    of each block (blockIdx.x < kStepClockBlocks) and step
+//    (< kStepClockSteps) apart, in qpdo_step_clocks[block][step][i], so that the busiest
+//    block of a step shows; QPDO_SPAN_STEP_BY(i, cond, step, thread) the
+//    same for another recording thread of the block (one that works in
+//    another phase than thread 0).  The file's qpdo_*_block_phase_clocks
+//    entry point copies them out.
 // The marks cost a few cycles each and hold instructions in place: a marked
 // kernel computes the same values, not at the shipped kernel's time.
 
@@ -36,10 +43,24 @@ inline int read_phase_clocks(long long* out) {
       out, qpdo_phase_clocks, sizeof(long long) * kPhaseClocks));
 }
 
+constexpr int kStepClockBlocks = 16;
+constexpr int kStepClockSteps = 64;
+constexpr int kStepClocks = kStepClockBlocks * kStepClockSteps * kPhaseClocks;
+__device__ long long qpdo_step_clocks[kStepClocks];
+
 inline int reset_phase_clocks() {
   static const long long zeros[kPhaseClocks] = {};
+  static const long long step_zeros[kStepClocks] = {};
+  const cudaError_t err =
+      cudaMemcpyToSymbol(qpdo_phase_clocks, zeros, sizeof(zeros));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      cudaMemcpyToSymbol(qpdo_phase_clocks, zeros, sizeof(zeros)));
+      cudaMemcpyToSymbol(qpdo_step_clocks, step_zeros, sizeof(step_zeros)));
+}
+
+inline int read_step_clocks(long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, qpdo_step_clocks, sizeof(long long) * kStepClocks));
 }
 
 }  // namespace
@@ -81,6 +102,22 @@ inline int reset_phase_clocks() {
     qpdo_span_last = qpdo_now;                                       \
   } while (0)
 
+#define QPDO_SPAN_STEP_BY(i, cond, step, thread)                     \
+  do {                                                               \
+    const long long qpdo_now = clock64();                            \
+    if (threadIdx.x == (thread) && (cond)) {                         \
+      const long long qpdo_span = qpdo_now - qpdo_span_last;         \
+      atomicAdd(reinterpret_cast<unsigned long long*>(               \
+                    &qpdo_phase_clocks[i]),                          \
+                static_cast<unsigned long long>(qpdo_span));         \
+      if (blockIdx.x < kStepClockBlocks && (step) < kStepClockSteps) \
+        qpdo_step_clocks[(blockIdx.x * kStepClockSteps + (step)) *   \
+                         kPhaseClocks + (i)] += qpdo_span;           \
+    }                                                                \
+    qpdo_span_last = qpdo_now;                                       \
+  } while (0)
+#define QPDO_SPAN_STEP(i, cond, step) QPDO_SPAN_STEP_BY(i, cond, step, 0)
+
 #else
 
 #define QPDO_MARK(i)
@@ -90,5 +127,7 @@ inline int reset_phase_clocks() {
 #define QPDO_SPAN_BEGIN()
 #define QPDO_SPAN(i)
 #define QPDO_SPAN_IF(i, cond)
+#define QPDO_SPAN_STEP(i, cond, step)
+#define QPDO_SPAN_STEP_BY(i, cond, step, thread)
 
 #endif

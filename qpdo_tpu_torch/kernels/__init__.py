@@ -38,7 +38,7 @@ SOURCES = ("formation.cu", "residuals.cu", "kkt_solve.cu", "kkt_solve_large.cu",
            "kkt_solve_cluster.cu", "ordered_sum.cu")
 # included by the sources
 HEADERS = ("async_copy.cuh", "cluster.cuh", "phase_clocks.cuh",
-           "shared_grant.cuh")
+           "shared_grant.cuh", "tf32x3.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

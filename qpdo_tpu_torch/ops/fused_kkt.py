@@ -134,12 +134,13 @@ def kernel_route(name: str, B: int, n: int, device=None) -> str:
     The card's count is also where the cluster route stops winning: on an
     NVIDIA H100 80GB HBM3 at 700 W (15 clusters of 8 blocks at once,
     7 of 16; ``scripts/time_kkt_global.py``, ``device_ms`` of
-    fused_kkt_solve / chol_solve_stacked) the cluster route took 0.43462
-    / 0.20978 ms at B=15, n=512 against the global route's 0.57918 /
-    0.36172, but 0.64464 / 0.41055 at B=16, one cluster more than the
-    card holds at once, against 0.56857 / 0.36321; at n=1024, 0.98927 /
-    0.53174 at B=7 against 1.26452 / 0.82375, but 1.70168 / 1.06521 at
-    B=8 against 1.43317 / 0.85146."""
+    fused_kkt_solve / chol_solve_stacked, the cluster route's trailing
+    update on the TF32 tensor cores) the cluster route took 0.42645 /
+    0.20689 ms at B=15, n=512 against the global route's 0.57543 /
+    0.35766, but 0.63024 / 0.40090 at B=16, one cluster more than the
+    card holds at once, against 0.57003 / 0.36598; at n=1024, 0.95011 /
+    0.51004 at B=7 against 1.25377 / 0.80407, but 1.62978 / 1.00879 at
+    B=8 against 1.45643 / 0.86065."""
     if n <= kernels.REGISTER_MAX_N:
         return "register"
     if n <= kernels.SHARED_MAX_N[name]:

@@ -19,9 +19,16 @@ builds kkt_solve_cluster.cu (with formation.cu) and runs both of its entry
 points at ``CLUSTER_SHAPES``: thread 0 of every block of problem 0's
 cluster adds its spans into ``CLUSTER_PHASES`` (the owner of a panel its
 owner-only phases), and the script prints them with their averages over
-the cluster's blocks and per pivot.  The marked kernels compute the same
-values; their times are not those of the shipped kernels (the marks cost
-a few cycles each and hold instructions in place).
+the cluster's blocks and per pivot; then, for the phases of a step
+(``STEP_PHASES``), the maximum over the blocks at each step (the busiest
+block is the critical path) and which block it was, and the sum of those
+maxima.  The marked kernels compute the same values; their times are not
+those of the shipped kernels (the marks cost a few cycles each and hold
+instructions in place).
+
+    python3 scripts/kernel_phase_clocks.py cluster
+
+runs the cluster route alone.
 """
 
 from __future__ import annotations
@@ -74,7 +81,13 @@ CLUSTER_PHASES = (
     (10, "R x = z: the sums", "every block"),
     (11, "the diagonal block's update", "the owner"),
     (12, "R x = z: a panel's operands", "its owner's warp 0"),
-    (13, "R x = z: the 32-step chain", "its owner's warp 0"))
+    (13, "R x = z: the 32-step chain", "its owner's warp 0"),
+    (14, "the owner's update (warp 1)", "the owner"))
+# the slots kept per block and step (csrc/phase_clocks.cuh, QPDO_SPAN_STEP):
+# those of a factor step, then those of a panel of R x = z
+STEP_PHASES = (2, 11, 3, 14, 4, 5, 6, 7)
+BACK_PHASES = (12, 13, 8, 9, 10)
+STEP_BLOCKS, STEPS = 16, 64    # kStepClockBlocks, kStepClockSteps
 CLUSTER_SHAPES = ((1, 1536, 1024), (1, 768, 512))
 
 
@@ -96,6 +109,31 @@ def read_clocks(reader):
     if err:
         raise RuntimeError(f"cudaMemcpyFromSymbol: CUDA error {err}")
     return list(buf)
+
+
+def read_step_clocks(reader) -> np.ndarray:
+    """The spans of each block and step, (block, step, slot)."""
+    buf = (ctypes.c_longlong * (STEP_BLOCKS * STEPS * SLOTS))()
+    err = reader(ctypes.c_void_p(ctypes.addressof(buf)))
+    if err:
+        raise RuntimeError(f"cudaMemcpyFromSymbol: CUDA error {err}")
+    return np.array(buf, dtype=np.int64).reshape(STEP_BLOCKS, STEPS, SLOTS)
+
+
+def print_busiest(name: str, steps: np.ndarray, C: int, P: int) -> None:
+    """For each slot of STEP_PHASES (steps 0 .. P-2) and BACK_PHASES
+    (panels P-1 .. 0), the maximum over the cluster's C blocks at each
+    step and the block that took it."""
+    names = {k: ph for k, ph, _ in CLUSTER_PHASES}
+    for slots, count, what in ((STEP_PHASES, P - 1, "step"),
+                               (BACK_PHASES, P, "panel")):
+        for k in slots:
+            per = steps[:C, :count, k]
+            most = per.max(axis=0)
+            print(f"{name} busiest block, {names[k]}, by {what}: max "
+                  f"{most.tolist()} (blocks {per.argmax(axis=0).tolist()});"
+                  f" sum of the maxima {int(most.sum())}, mean "
+                  f"{most.mean():.0f} a {what}", flush=True)
 
 
 def smi(query: str) -> str:
@@ -182,6 +220,7 @@ def cluster_route(lib) -> None:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.qpdo_kkt_solve_cluster_f32.argtypes = [ptr] * 8 + [i] * 5 + [ptr]
     lib.qpdo_chol_solve_cluster_f32.argtypes = [ptr] * 4 + [i] * 3 + [ptr]
+    lib.qpdo_kkt_cluster_block_phase_clocks.argtypes = [ptr]
     stream = torch.cuda.current_stream().cuda_stream
     sms = ff.sm_count(0)
     for B, M, N in CLUSTER_SHAPES:
@@ -222,6 +261,8 @@ def cluster_route(lib) -> None:
                 err = call()
                 torch.cuda.synchronize()
                 t = read_clocks(lib.qpdo_kkt_cluster_phase_clocks)
+                steps = read_step_clocks(
+                    lib.qpdo_kkt_cluster_block_phase_clocks)
             assert err == 0 and torch.isfinite(dx).all(), name
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -242,12 +283,17 @@ def cluster_route(lib) -> None:
                   f"SM clock {clock}; {ms:.4f} ms a call "
                   f"({ms * 1e-3 * float(clock.split()[0]) * 1e6:.0f} cycles)",
                   flush=True)
+            print_busiest(name, steps, C, (N + 31) // 32)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phase_clocks: needs a CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["cluster"]:
+        print(smi("name,power.limit"))
+        cluster_route(marked_library("kkt_solve_cluster.cu", "formation.cu"))
+        return 0
     kkt = marked_library("kkt_solve.cu")
     form = marked_library("formation.cu")
     ptr, i = ctypes.c_void_p, ctypes.c_int
