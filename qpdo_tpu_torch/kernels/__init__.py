@@ -33,6 +33,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("formation.cu", "residuals.cu", "kkt_solve.cu", "kkt_solve_large.cu",
            "kkt_solve_cluster.cu", "ordered_sum.cu")
@@ -193,11 +195,13 @@ def launch(name: str, dtype: torch.dtype, tensors, sizes) -> None:
                           f" got {len(tensors)} and {len(sizes)}")
     index = tensors[0].get_device()
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
-    if index == torch.cuda.current_device():
-        err = fn(*ptrs, *sizes, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
+    with profiling.span("qpdo.launch", name, dtype, sizes):
+        if index == torch.cuda.current_device():
             err = fn(*ptrs, *sizes, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*ptrs, *sizes,
+                         torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise KernelError(f"{name} kernel launch failed: CUDA error {err} "
                           f"({lib.qpdo_error_string(err).decode()})")

@@ -36,6 +36,7 @@ from ..solver import core
 from ..solver.scaling import scale_problem
 from ..types import Problem, Result, ScaledProblem, Settings, SolverState, tree_map
 from ..utils import debug as _debug
+from ..utils import profiling as _profiling
 from .dtensor import dtensor_from_local, is_dtensor, local_block
 
 
@@ -61,11 +62,13 @@ def solve_batch(problems: Problem, settings: Optional[Settings] = None,
     ``x0``/``y0`` are then DTensors split alike, or whole (B, .) tensors
     that every rank holds."""
     settings = settings or Settings()
-    if is_dtensor(problems.Q):
-        return _solve_split(problems, settings, x0, y0, compact)
-    if compact:
-        return _solve_batch_compact(problems, settings, x0, y0)
-    return _solve_batch(problems, settings, x0, y0)
+    with _profiling.span("qpdo.solve_batch", problems.Q.shape[0],
+                         device=problems.Q.device):
+        if is_dtensor(problems.Q):
+            return _solve_split(problems, settings, x0, y0, compact)
+        if compact:
+            return _solve_batch_compact(problems, settings, x0, y0)
+        return _solve_batch(problems, settings, x0, y0)
 
 
 def _take(tree, idx):
@@ -110,15 +113,11 @@ def _run_compact(sp_b: ScaledProblem, stg: Settings, state: SolverState,
         return (st.status == _c.UNSOLVED) & (st.iter < iter_cap)
 
     def global_active(st):
-        n = active_of(st).sum().to(torch.int64)
-        if group is not None:
-            torch.distributed.all_reduce(n, group=group)
-        return int(n)
-
-    def masked_step(st):
-        # problems at the iteration cap are frozen explicitly (core.step
-        # only freezes status-latched ones)
-        return core.masked(core.step(op, stg, st, out), st, active_of(st))
+        with _profiling.span("qpdo.check"):
+            n = active_of(st).sum().to(torch.int64)
+            if group is not None:
+                torch.distributed.all_reduce(n, group=group)
+            return int(n)
 
     refresh = None
     if mixed:
@@ -129,17 +128,23 @@ def _run_compact(sp_b: ScaledProblem, stg: Settings, state: SolverState,
     st = state
     with core.matmul_precision(stg.matmul_precision):
         while global_active(st) > K:
-            for _ in range(stg.anchor_every):
-                st = masked_step(st)
-            if refresh is not None:
-                st = refresh(op, stg, st)
+            with _profiling.span("qpdo.chunk", st.x.shape[0]):
+                for _ in range(stg.anchor_every):
+                    # problems at the iteration cap are frozen explicitly
+                    # (core.step only freezes status-latched ones)
+                    st = core.masked_step(op, stg, st, out, active_of)
+                if refresh is not None:
+                    st = refresh(op, stg, st)
             _debug.after_chunk(st)
 
-        while bool(active_of(st).any()):
-            order = torch.argsort((~active_of(st)).to(torch.int8), stable=True)
-            idx = order[:K]
-            sub = core.run_loop(_take(sp_b, idx), stg, _take(st, idx), iter_cap)
-            st = _put(st, idx, sub)
+        while core.any_active(active_of(st)):
+            with _profiling.span("qpdo.compact", K, device=st.x.device):
+                order = torch.argsort((~active_of(st)).to(torch.int8),
+                                      stable=True)
+                idx = order[:K]
+                sub = core.run_loop(_take(sp_b, idx), stg, _take(st, idx),
+                                    iter_cap)
+                st = _put(st, idx, sub)
     return st
 
 

@@ -46,6 +46,7 @@ from ..ops.linalg import resolve_dtype
 from ..ops.linesearch import exact_linesearch
 from ..types import Info, Result, ScaledProblem, Settings, SolverState
 from ..utils import debug as _debug
+from ..utils import profiling as _profiling
 
 
 def as_operator(sp_or_op):
@@ -227,6 +228,28 @@ def residual_outputs(s: SolverState):
     return kernel_outputs(B, s.y.shape[1], n, s.x.dtype, s.x.device)
 
 
+def _newton_direction(op, settings: Settings, s: SolverState, active,
+                      ytilde, res_dual_in, ckdt):
+    """The Newton direction dx of ``step`` and the carried KKT cache after
+    it (span ``qpdo.newton``)."""
+    if (settings.fused_newton_rhs and isinstance(op, DenseOperator)
+            and s.kkt_cache is None):
+        # fused-rhs mode: the Newton solve forms rhs itself
+        dx = op.newton_solve(active, s.mu, s.sigma, None, settings,
+                             dx_prev=s.dx_prev, tol_hint=s.eps_in,
+                             ytilde=ytilde, res_dual_in=res_dual_in)
+        return dx, s.kkt_cache
+    At_ytilde = op.Atmv(ytilde, dtype=ckdt)
+    rhs = -(res_dual_in + At_ytilde)
+    if s.kkt_cache is not None and hasattr(op, "newton_solve_cached"):
+        return op.newton_solve_cached(active, s.mu, s.sigma, rhs, settings,
+                                      s.kkt_cache, dx_prev=s.dx_prev,
+                                      tol_hint=s.eps_in)
+    dx = op.newton_solve(active, s.mu, s.sigma, rhs, settings,
+                         dx_prev=s.dx_prev, tol_hint=s.eps_in)
+    return dx, s.kkt_cache
+
+
 @_with_matmul_precision
 def step(op, settings: Settings, s: SolverState,
          residual_out=None) -> SolverState:
@@ -243,15 +266,17 @@ def step(op, settings: Settings, s: SolverState,
     # kernel on a CUDA tensor whatever the flag, see types.py), into the
     # loop's buffers where it hands them in (residual_outputs).
     sig_eff = sigma if settings.proximal else torch.zeros_like(sigma)
-    (res_prim, res_prim_in, w, active, res_dual_in,
-     res_prim_norm, res_dual_norm, res_prim_in_norm,
-     res_dual_in_norm) = fused_residuals(
-         s.Ax, s.y, s.mu, s.ybar, op.l, op.u, op.E, op.Einv,
-         s.Qx, op.q, s.Aty, s.x, s.xbar, op.Dinv, sig_eff, cinv,
-         out=residual_out)
-    (res_prim_norm, res_prim_in_norm, res_dual_norm,
-     res_dual_in_norm) = _global_max(op, (res_prim_norm, res_prim_in_norm),
-                                     (res_dual_norm, res_dual_in_norm))
+    with _profiling.span("qpdo.residuals"):
+        (res_prim, res_prim_in, w, active, res_dual_in,
+         res_prim_norm, res_dual_norm, res_prim_in_norm,
+         res_dual_in_norm) = fused_residuals(
+             s.Ax, s.y, s.mu, s.ybar, op.l, op.u, op.E, op.Einv,
+             s.Qx, op.q, s.Aty, s.x, s.xbar, op.Dinv, sig_eff, cinv,
+             out=residual_out)
+        (res_prim_norm, res_prim_in_norm, res_dual_norm,
+         res_dual_in_norm) = _global_max(
+             op, (res_prim_norm, res_prim_in_norm),
+             (res_dual_norm, res_dual_in_norm))
     if settings.pallas_residuals and isinstance(op, DenseOperator):
         # the fused branch of core.py:205-207: df recovered from the kernel
         df = res_dual_in - s.Aty
@@ -297,24 +322,9 @@ def step(op, settings: Settings, s: SolverState,
     cdt = resolve_dtype(cert_dt, dt)
     split_certs = check_inf and cdt != dt
 
-    if (settings.fused_newton_rhs and isinstance(op, DenseOperator)
-            and s.kkt_cache is None):
-        # fused-rhs mode: the Newton solve forms rhs itself
-        dx = op.newton_solve(active, s.mu, sigma, None, settings,
-                             dx_prev=s.dx_prev, tol_hint=s.eps_in,
-                             ytilde=ytilde, res_dual_in=res_dual_in)
-        kkt_cache_new = s.kkt_cache
-    else:
-        At_ytilde = op.Atmv(ytilde, dtype=ckdt)
-        rhs = -(res_dual_in + At_ytilde)
-        if s.kkt_cache is not None and hasattr(op, "newton_solve_cached"):
-            dx, kkt_cache_new = op.newton_solve_cached(
-                active, s.mu, sigma, rhs, settings, s.kkt_cache,
-                dx_prev=s.dx_prev, tol_hint=s.eps_in)
-        else:
-            dx = op.newton_solve(active, s.mu, sigma, rhs, settings,
-                                 dx_prev=s.dx_prev, tol_hint=s.eps_in)
-            kkt_cache_new = s.kkt_cache
+    with _profiling.span("qpdo.newton", device=op.device):
+        dx, kkt_cache_new = _newton_direction(op, settings, s, active, ytilde,
+                                              res_dual_in, ckdt)
     Qdx_c = Adx_c_raw = Atdy_c_raw = None
     if mixed:
         Qdx_pure = op.Qmv(dx, dtype=ckdt)
@@ -354,9 +364,10 @@ def step(op, settings: Settings, s: SolverState,
         Atdy, Atdy_c_raw = op.Atmv2(dy, dy_c)
     else:
         Atdy = op.Atmv(dy)
-    tau = exact_linesearch(dx, dy, Qdx, Adx, df, s.y, w, s.mu, op.l, op.u,
-                           settings.linesearch, settings.linesearch_dtype,
-                           comm=op.comm)
+    with _profiling.span("qpdo.linesearch"):
+        tau = exact_linesearch(dx, dy, Qdx, Adx, df, s.y, w, s.mu, op.l,
+                               op.u, settings.linesearch,
+                               settings.linesearch_dtype, comm=op.comm)
     if settings.newton_full_step and op.newton_exact(settings):
         # full-step acceptance from the cache increments alone
         Ax_t = s.Ax + Adx
@@ -562,6 +573,21 @@ def masked(new: SolverState, old: SolverState, mask) -> SolverState:
     return SolverState(*[select(mask, a, b) for a, b in zip(new, old)])
 
 
+def masked_step(op, settings: Settings, s: SolverState, out,
+                active) -> SolverState:
+    """One masked step (span ``qpdo.step <B>``): ``step`` from ``s`` kept
+    for the problems where ``active(s)`` holds, ``s`` elsewhere."""
+    with _profiling.span("qpdo.step", s.x.shape[0]):
+        return masked(step(op, settings, s, out), s, active(s))
+
+
+def any_active(mask) -> bool:
+    """Whether ``mask`` holds for any problem: a host read, where the host
+    waits for the device (span ``qpdo.check``)."""
+    with _profiling.span("qpdo.check"):
+        return bool(mask.any())
+
+
 def _loop_active(s: SolverState, iter_cap):
     return (s.status == _c.UNSOLVED) & (s.iter < iter_cap)
 
@@ -586,25 +612,29 @@ def run_loop(op, settings: Settings, s: SolverState,
     K = settings.anchor_every
     out = residual_outputs(s)
     if not mixed and s.kkt_cache is None:
-        while bool(_loop_active(s, iter_cap).any()):
-            for _ in range(K):
-                s = masked(step(op, settings, s, out), s,
-                           _loop_active(s, iter_cap))
+        active = functools.partial(_loop_active, iter_cap=iter_cap)
+        while any_active(active(s)):
+            with _profiling.span("qpdo.chunk", s.x.shape[0]):
+                for _ in range(K):
+                    s = masked_step(op, settings, s, out, active)
             _debug.after_chunk(s)
         return s
 
     refresh = reanchor if mixed else rebuild_kkt_cache
     while True:
         began = _loop_active(s, iter_cap)
-        if not bool(began.any()):
+        if not any_active(began):
             return s
-        end = torch.clamp(s.iter + K, max=iter_cap)
-        for _ in range(K):
-            s = masked(step(op, settings, s, out), s, _loop_active(s, end))
-        s = masked(refresh(op, settings, s), s, began)
+        with _profiling.span("qpdo.chunk", s.x.shape[0]):
+            end = torch.clamp(s.iter + K, max=iter_cap)
+            active = functools.partial(_loop_active, iter_cap=end)
+            for _ in range(K):
+                s = masked_step(op, settings, s, out, active)
+            s = masked(refresh(op, settings, s), s, began)
         _debug.after_chunk(s)
 
 
+@_profiling.spanned("qpdo.finalize")
 @_with_matmul_precision
 def finalize(op, settings: Settings, s: SolverState,
              unsolved_status: int = _c.MAX_ITER_REACHED) -> Result:
@@ -644,6 +674,7 @@ def finalize(op, settings: Settings, s: SolverState,
                   dual_inf_cert=dx_cert, info=info)
 
 
+@_profiling.spanned("qpdo.polish")
 @_with_matmul_precision
 def polish_state(op, settings: Settings, s: SolverState) -> SolverState:
     """The solution polish (Settings.polish; core.py:686-738): one saddle

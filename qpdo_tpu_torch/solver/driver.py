@@ -36,7 +36,7 @@ import torch
 
 from .. import constants as _c
 from ..types import Result, Settings
-from ..utils import debug, printing
+from ..utils import debug, printing, profiling
 from . import core
 
 _TIME_CHUNK = 32  # iterations between wall-clock checks
@@ -98,7 +98,8 @@ def solve_driven(sp, settings: Settings, x0=None, y0=None,
         mixed = core.mixed_mode(settings, op)
         while running():
             prev = s
-            s = core.step(op, settings, s)
+            with profiling.span("qpdo.step", op.batch):
+                s = core.step(op, settings, s)
             debug.after_chunk(s)
             if mixed and int(s.iter) % settings.anchor_every == 0:
                 s = core.reanchor(op, settings, s)

@@ -13,6 +13,7 @@ import torch
 
 from .. import constants as _c
 from ..types import Problem, Scaling, ScaledProblem
+from ..utils import profiling
 
 
 def limit_scaling(v):
@@ -57,6 +58,7 @@ def ruiz_equilibrate_kkt(Q, A, iters: int, comm=None):
     return Q, A, D, E
 
 
+@profiling.spanned("qpdo.scale")
 def scale_problem(problem: Problem, scaling_iters: int,
                   ruiz_kkt: bool = False, comm=None) -> ScaledProblem:
     """Scale a batch of problems (scale_data, scaling.c:24-91).  Bounds are
