@@ -67,7 +67,14 @@ Phases (any failure raises and exits non-zero):
    and the bound, and the clusters the card holds at once.  Then both
    kernels at one problem of odd n (``ODD_KKT_SHAPES``: n = 221, 243 and
    1001, B n^2 odd) on the route each selects, against their plain
-   versions and twice for the same bits.
+   versions and twice for the same bits.  At the global-route shapes and
+   at ``RESOLVE_SHAPE`` (the benchmark cell's), kernel 3's factor kept for
+   another right-hand side (``fused_kkt_solver``: one launch, then
+   ``kkt_resolve_global``): the bits of ``fused_kkt_solve`` for both
+   right-hand sides, the plain version's tolerance (or twice the plain
+   version's distance from the float64 solution where K's conditioning
+   makes that larger), one substitution counted, and its times beside the library route (two triangular solves
+   on a kept ``cholesky_ex`` factor) and its bound.
 7. The second path: the same family through ``solve_batch(...,
    compact=True)`` with ``kkt_dtype="float32", mu_min=1e-7,
    refine_steps=2, pallas_kkt=True, pallas_residuals=True`` (float64
@@ -246,7 +253,8 @@ The line before the last is a JSON object with one entry per kernel and
 dtype (formation, residuals and the ordered segment sum "ordered_sum" in
 both dtypes), and one per added route
 ("formation_split" in both dtypes, "kkt_solve_global",
-"chol_solve_global", "kkt_solve_cluster", "chol_solve_cluster"), with its
+"chol_solve_global", "kkt_resolve_global", "kkt_solve_cluster",
+"chol_solve_cluster"), with its
 launches on the path that runs it first and on each path (phases 6b, 7b,
 7c and 7d add "composition_large", "pallas_kkt_n300", "tall_f32" and
 "pallas_kkt_n1024"; phase 15 adds "cr",
@@ -303,6 +311,10 @@ LARGE_KKT_SHAPES = ((8, 384, 256), (8, 768, 512), (64, 450, 300),
 # route's workspace is padded so that the panel buffer after it stays
 # aligned), on the route each kernel selects
 ODD_KKT_SHAPES = ((1, 332, 221), (1, 366, 243), (1, 1502, 1001))
+# phase 6b: kernel 3's kept factor (kkt_resolve_global) at the shape of
+# the benchmark's cell, 1,024 OSQP Portfolio QPs at k = 5 (B, m, n), its
+# inputs made on the card
+RESOLVE_SHAPE = (1024, 506, 505)
 # phase 7b: the pallas_kkt path above the shared-memory route (B, n, m)
 PHASE7B = (64, 300, 450)
 # phase 7d: one large dense QP, random_qp(n, m, seed=0) (n, m)
@@ -843,6 +855,7 @@ def main() -> int:
                   ("formation_split", F32): "tall_f32",
                   ("formation_split", F64): "row_sharded_m100000",
                   ("kkt_solve_global", F32): "pallas_kkt_n300",
+                  ("kkt_resolve_global", F32): "pallas_kkt_n300",
                   ("chol_solve_global", F32): "composition_large",
                   ("kkt_solve_cluster", F32): "pallas_kkt_n1024",
                   ("chol_solve_cluster", F32): "composition_large",
@@ -1031,6 +1044,20 @@ def route_rows(times6b, tall):
                                     "library_route_device_ms")},
             "library_route": library[name.rsplit("_", 1)[0]],
             "shapes": [t for (nm, _), t in times6b.items() if nm == name]})
+    head = times6b[("kkt_resolve_global", RESOLVE_SHAPE)]
+    rows.append({
+        "name": "kkt_resolve_global", "dtype": "float32", "route": "cuda",
+        "source": "qpdo_tpu_torch/csrc/kkt_solve_large.cu",
+        "replaces": "none: kernel 3's substitutions (qpdo_tpu/ops/"
+                    "pallas_kkt.py:40) on its kept factor; the TPU path "
+                    "launches kernel 3 whole for each right-hand side",
+        "launches": 0, "max_abs_err": 0.0,
+        **{k: head[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "library_route_ms",
+                                "library_route_device_ms")},
+        "library_route": "2 solve_triangular on a kept cholesky_ex factor",
+        "shapes": [t for (nm, _), t in times6b.items()
+                   if nm == "kkt_resolve_global"]})
     return rows
 
 
@@ -1147,6 +1174,9 @@ def launch_counts(ff, fr, fk):
         counts[(f"kkt_solve_{route}", F32)] = fk.fused_kkt_solve.routes[route]
         counts[(f"chol_solve_{route}", F32)] = \
             fk.chol_solve_stacked.routes[route]
+    # the global route's factor kept for a Newton solve's further right-hand
+    # sides, which only substitute
+    counts[("kkt_resolve_global", F32)] = fk.fused_kkt_solver.launches[F32]
     # the sparse path's sums into shared targets
     from qpdo_tpu_torch.ops import ordered_sum
 
@@ -1364,11 +1394,123 @@ def phase6b(ff, fr, fk, tl, card):
                 print(f"phase 6b: {name} at {shape}: cluster route {cl:.4f} "
                       f"ms, global route {gl:.4f} ms on the card alone; "
                       f"selected {selected[name]}", flush=True)
+        if selected["kkt_solve"] == "global":
+            resolve_check(fk, ff, shape, (Q, A, w, sigma, rhs), ref, errs,
+                          times, tol, card)
+    resolve_check(fk, ff, RESOLVE_SHAPE, card_kkt_inputs(RESOLVE_SHAPE),
+                  None, errs, times, tol, card)
     for shape in ODD_KKT_SHAPES:
         odd_n_check(fk, ff, shape, errs, tol)
     require_launched(composition, "phase 6b composition", ("formation", F32),
                      ("chol_solve_cluster", F32), ("chol_solve_global", F32))
     return errs, times, composition
+
+
+def card_kkt_inputs(shape, seed=0):
+    """``kkt_inputs``' family made on the card (too large for numpy's
+    einsum): Q = M M' / n + 0.1 I, A normal, w uniform, sigma 1e-3, rhs
+    normal."""
+    b, m, n = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    Mx = torch.randn((b, n, n), generator=gen, device=DEVICE)
+    Q = torch.baddbmm(0.1 * torch.eye(n, device=DEVICE).expand(b, n, n),
+                      Mx, Mx.mT, alpha=1 / n)
+    del Mx
+    return [Q, torch.randn((b, m, n), generator=gen, device=DEVICE),
+            torch.rand((b, m), generator=gen, device=DEVICE),
+            torch.full((b,), 1e-3, device=DEVICE),
+            torch.randn((b, n), generator=gen, device=DEVICE)]
+
+
+def float64_kkt_solve(fk, Q, A, w, sigma, rhs):
+    """The system of ``fused_kkt_solve`` (K Jacobi-scaled, plus the static
+    shift) solved in float64 by ``torch.linalg.cholesky``: the yardstick
+    of float32 rounding at a shape."""
+    Q, A, w, sigma, rhs = (t.to(F64) for t in (Q, A, w, sigma, rhs))
+    eye = torch.eye(Q.shape[-1], dtype=F64, device=Q.device)
+    K = A.mT @ (w[..., None] * A) + Q + sigma[:, None, None] * eye
+    dinv = torch.rsqrt(torch.diagonal(K, dim1=-2, dim2=-1))
+    Khat = K * dinv[:, :, None] * dinv[:, None, :] + fk._static_reg32() * eye
+    del K
+    chol = torch.linalg.cholesky(Khat)
+    return torch.cholesky_solve((rhs * dinv)[..., None], chol)[..., 0] * dinv
+
+
+def resolve_check(fk, ff, shape, args, ref, errs, times, tol, card):
+    """Kernel 3's factor kept for another right-hand side at ``shape`` (a
+    global-route shape): ``fused_kkt_solver`` called with a second
+    right-hand side and then with ``rhs`` gives, for each, the bits of
+    ``fused_kkt_solve``, and for ``rhs`` the plain version ``ref``
+    (computed here when None) within ``tol``, or within twice the plain
+    version's own distance from the float64 solution where that is larger
+    (the rounding that K's conditioning allows in float32), with one
+    ``kkt_resolve_global`` counted for the second call.  Its error goes
+    into ``errs``, its times
+    (a substitution on the kept factor, beside the library route, the
+    plain version and the bound: R's upper triangle, dinv, R's diagonal
+    and rhs read once, dx written once) into ``times``."""
+    b, m, n = shape
+    Q, A, w, sigma, rhs = args
+    if fk.kernel_route("kkt_solve", b, n) != "global":
+        raise AssertionError(f"phase 6b: resolve at {shape}: not the global "
+                             "route")
+    rhs2 = rhs.flip(1)
+    solver = fk.fused_kkt_solver(Q, A, w, sigma)
+    before = fk.fused_kkt_solver.launches[F32]
+    got = (solver(rhs2), solver(rhs))
+    torch.cuda.synchronize()
+    resolves = fk.fused_kkt_solver.launches[F32] - before
+    want = (fk.fused_kkt_solve(Q, A, w, sigma, rhs2),
+            fk.fused_kkt_solve(Q, A, w, sigma, rhs))
+    if ref is None:
+        ref = fk.reference_kkt_solve(Q, A, w, sigma, rhs)
+    same = all(torch.equal(g, x) for g, x in zip(got, want))
+    r = rel_err(got[1], ref)
+    plain = rel_err(ref, float64_kkt_solve(fk, Q, A, w, sigma, rhs))
+    allowed = max(tol, 2 * plain)
+    print(f"phase 6b: kkt_resolve_global at {shape}: same bits as "
+          f"fused_kkt_solve for both right-hand sides {same}; max error "
+          f"relative to max|dx| {r:.3e} (tol {allowed:.3e}: the plain "
+          f"version is {plain:.3e} from float64); substitutions counted "
+          f"{resolves}", flush=True)
+    if not (same and r <= allowed and resolves == 1):
+        raise AssertionError(f"phase 6b: kkt_resolve_global at {shape}: "
+                             f"bits {same}, error {r:.3e} (tol "
+                             f"{allowed:.3e}), {resolves} substitutions "
+                             "counted (want 1)")
+    key = ("kkt_resolve_global", F32)
+    errs[key] = max(errs.get(key, 0.0), (got[1] - ref).abs().max().item())
+    Khat, bhat, _ = scaled_system(fk, ff, Q, A, w, sigma, rhs)
+    chol = torch.linalg.cholesky_ex(Khat)[0]
+    del Khat
+
+    def library():
+        z = torch.linalg.solve_triangular(chol, bhat[..., None], upper=False)
+        return torch.linalg.solve_triangular(chol.mT, z, upper=True)
+
+    def kernel():
+        return solver(rhs)
+
+    bms, by = bound_ms(4 * b * (n * (n + 1) // 2 + 4 * n), 2 * b * n * n)
+    k1, l1 = timed(kernel, 20), timed(library, 20)
+    l2, k2 = timed(library, 20), timed(kernel, 20)
+    t = times[(key[0], shape)] = dict(
+        B=b, m=m, n=n, selected=True, ms=min(k1, k2),
+        device_ms=device_ms(kernel, calls=20, replays=3),
+        launch_device_ms=device_ms(lambda: fk.fused_kkt_solve(*args),
+                                   calls=5, replays=2),
+        plain_ms=timed(lambda: fk.reference_kkt_solve(*args), 2),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        library_route_ms=min(l1, l2),
+        library_route_device_ms=device_ms(library, calls=20, replays=3))
+    print(f"phase 6b: kkt_resolve_global float32 at B={b} m={m} n={n}: "
+          f"substitution {t['ms']:.4f} ms, on the card alone "
+          f"{t['device_ms']:.4f} ms (a launch of kernel 3 "
+          f"{t['launch_device_ms']:.4f} ms); plain version (the whole "
+          f"solve) {t['plain_ms']:.2f} ms; library route "
+          f"{t['library_route_ms']:.4f} ms, on the card alone "
+          f"{t['library_route_device_ms']:.4f} ms; bound {bms:.5f} ms (by "
+          f"{by}), on {card}", flush=True)
 
 
 def odd_n_check(fk, ff, shape, errs, tol):
@@ -1461,7 +1603,8 @@ def phase7b(pt, ff, fr, fk, card):
           f"solve {wall:.2f} s, kernel launches {printable(counts)}, on "
           f"{card}")
     require_launched(counts, "phase 7b", ("kkt_solve", F32),
-                     ("kkt_solve_global", F32), ("residuals", F64))
+                     ("kkt_solve_global", F32), ("kkt_resolve_global", F32),
+                     ("residuals", F64))
     check_solved(pt, d, res, "phase 7b (n=300, global route)")
     return counts
 

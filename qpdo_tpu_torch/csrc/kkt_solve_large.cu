@@ -76,6 +76,19 @@
 // Every entry of K takes its updates one pivot row at a time, in the order
 // of the plain version's unblocked recurrence.  A failed problem (NaN or
 // non-positive pivots) stays in its own blocks.
+//
+// kkt_resolve_global solves the same K for another right-hand side on the
+// factor that a kkt_solve_global launch left in its workspace (R, dinv and
+// the diagonal of R, none of which it writes): a Newton solve's refinement
+// sweeps change only the right-hand side.  It replaces no TPU kernel.  It
+// reads R twice, ~n^2/2 floats a problem each time, with ~n^2 multiply-adds
+// a pass, so it is bound by bytes.  R'z = dinv * rhs is a launch of its own,
+// one block per problem: a panel at a time, warp 0 solves the diagonal
+// block with shuffles, then every thread streams its columns of the
+// panel's rows once (coalesced) and subtracts them times z.  Each v_j takes
+// v_j - z_p R[p][j] in pivot order and z_j = v_j / R[j][j], as in the panel
+// kernel, so z, and dx after the back substitution above, have the bits of
+// a kkt_solve_global launch with that right-hand side.
 
 #include <cuda_runtime.h>
 
@@ -110,10 +123,11 @@ constexpr float kTiny = 1e-30f;
 constexpr float kReg = 100.0f * 1.1920928955078125e-07f;   // 100 * eps32
 // shared floats of each kernel: the panel kernel's diagonal block of R
 // and its vectors; the trailing update's two strips; the back
-// substitution's two panel vectors
+// substitution's two panel vectors; the forward substitution's z of a panel
 constexpr size_t kPanelFloats = kPanel * kLd + 3 * kPanel + kStrip + 1;
 constexpr size_t kTrailFloats = 2 * kPanel * kTile;
 constexpr size_t kBackFloats = 2 * kPanel;
+constexpr size_t kForwardFloats = kPanel;
 
 // four floats moved by one shared-memory access
 struct alignas(16) Float4 {
@@ -509,6 +523,73 @@ back_kernel(const float* __restrict__ K, float* vec, float* __restrict__ dx,
     dx[static_cast<size_t>(b) * n + i] = kJacobi ? v[i] * dinv[i] : v[i];
 }
 
+// R'z = dinv * rhs on kkt_solve_global's factor, one block per problem (the
+// header's kkt_resolve_global): writes z and, as it updates it, the
+// right-hand side of vec; the divisors unclamped, as kkt_solve_global's.
+// At least 4 blocks an SM: their loads keep HBM busy while one block's
+// warp 0 solves a diagonal block.
+__global__ void __launch_bounds__(kThreads, 4)
+forward_kernel(const float* __restrict__ K, const float* __restrict__ rhs,
+               float* vec, int n) {
+  extern __shared__ __align__(16) float large_smem[];
+  float* zs = large_smem;              // z of the panel's rows
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int b = blockIdx.x;
+  const float* Kb = K + b * static_cast<size_t>(n) * n;
+  float* dinv = vec + static_cast<size_t>(b) * 4 * n;
+  float* v = dinv + n;
+  const float* rdiag = v + n;
+  float* z = v + 2 * n;
+  const float* rb = rhs + static_cast<size_t>(b) * n;
+
+  wait_for_prior_grids();
+  // stored before the updates, so that the product is rounded on its own
+  // as the panel kernel rounds it
+  for (int i = tid; i < n; i += kThreads) v[i] = rb[i] * dinv[i];
+  __syncthreads();
+  for (int k0 = 0; k0 < n; k0 += kPanel) {
+    const int pc = (n - k0 < kPanel) ? n - k0 : kPanel;
+    const int t0 = k0 + pc;
+    if (warp == 0) {
+      // lane q: R[p][q] for p < q (K's lower triangle holds the diagonal
+      // block transposed), v_q and R[q][q]
+      float col[kPanel];
+#pragma unroll
+      for (int p = 0; p < kPanel; ++p)
+        col[p] = (p < lane && lane < pc) ? Kb[static_cast<size_t>(k0 + lane) * n + k0 + p] : 0.0f;
+      const float diag = (lane < pc) ? rdiag[k0 + lane] : 1.0f;
+      float vq = (lane < pc) ? v[k0 + lane] : 0.0f;
+      float zq = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kPanel; ++p) {
+        if (p < pc) {
+          const float zp = __shfl_sync(0xffffffffu, vq / diag, p);
+          if (lane > p && lane < pc) vq -= zp * col[p];
+          if (lane == p) zq = zp;
+        }
+      }
+      if (lane < pc) {
+        zs[lane] = zq;
+        z[k0 + lane] = zq;
+      }
+    }
+    __syncthreads();
+    // the columns right of the panel (there are some only where the panel
+    // is a full one): its 32 rows of R times z, in pivot order
+    const float* P = Kb + static_cast<size_t>(k0) * n;
+    for (int j = t0 + tid; j < n; j += kThreads) {
+      float x = v[j];
+#pragma unroll
+      for (int p = 0; p < kPanel; ++p) x -= zs[p] * P[static_cast<size_t>(p) * n + j];
+      v[j] = x;
+    }
+    __syncthreads();
+  }
+}
+
 // The launch sequence: per panel the panel kernel and, while rows remain
 // below it, the trailing update; then the back substitution.  src: the
 // first panel's source (the workspace for kJacobi, else the given K).
@@ -569,6 +650,25 @@ extern "C" int qpdo_kkt_solve_global_f32(const void* Q, const void* A,
                                     static_cast<float*>(dx),
                                     static_cast<float*>(work), B, n,
                                     static_cast<cudaStream_t>(stream));
+}
+
+// rhs: the new right-hand side; work: the workspace of an earlier
+// qpdo_kkt_solve_global_f32 call at the same B and n, whose factor it
+// reads (only the right-hand side and z of its vectors are written).
+extern "C" int qpdo_kkt_resolve_global_f32(const void* rhs, void* dx,
+                                           void* work, int B, int n,
+                                           void* stream) {
+  if (B <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  const float* K = static_cast<const float*>(work);
+  float* vec = static_cast<float*>(work) + static_cast<size_t>(B) * n * n;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_dependent(
+      forward_kernel, dim3(B), kForwardFloats * sizeof(float), s, K,
+      static_cast<const float*>(rhs), vec, n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_dependent(
+      back_kernel<true, false>, dim3(B), kBackFloats * sizeof(float), s, K,
+      vec, static_cast<float*>(dx), n));
 }
 
 #ifdef QPDO_PHASE_CLOCKS

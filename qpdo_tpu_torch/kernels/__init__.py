@@ -54,6 +54,9 @@ _KERNELS = {
     "chol_solve": (3, 2, (torch.float32,)),                 # B, n
     "kkt_solve_global": (8, 4, (torch.float32,)),           # B, m, n, splits
     "chol_solve_global": (4, 2, (torch.float32,)),          # B, n
+    # kkt_solve_global's factor, kept in its workspace, for another
+    # right-hand side: B, n
+    "kkt_resolve_global": (3, 2, (torch.float32,)),
     # B, m, n, splits, blocks of a cluster (0: the size for n)
     "kkt_solve_cluster": (8, 5, (torch.float32,)),
     "chol_solve_cluster": (4, 3, (torch.float32,)),         # B, n, cluster

@@ -14,7 +14,11 @@ for a few problems, in the shared memory of a thread-block cluster a
 problem (``qpdo_tpu_torch/csrc/kkt_solve_cluster.cu``), else in global
 memory (``qpdo_tpu_torch/csrc/kkt_solve_large.cu``), K formed by kernel 1
 first on both; so any n is solved, as the TPU kernels' padded entries
-solve it.  On a CPU tensor a wrapper runs the
+solve it.  ``fused_kkt_solver`` serves many right-hand sides of one K (a
+Newton solve and its refinement): on the global route it keeps the first
+launch's factor and substitutes on it for the others
+(``kkt_resolve_global``), with the bits of a launch each.  On a CPU
+tensor a wrapper runs the
 plain version below, which has the same semantics step for step:
 
     K    = Q + sigma*I + A' diag(w) A
@@ -37,6 +41,7 @@ solver; it is the second half of ``fused_kkt_solve`` on its own.
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
@@ -166,13 +171,14 @@ def cluster_work_floats(name: str, B: int, n: int) -> int:
         B, n, int(name == "kkt_solve")))
 
 
-def _launch(name, wrapper, tensors, sizes, route=None):
+def _launch(name, wrapper, tensors, sizes, route=None, work=None):
     """Launch kernel ``name`` on float32 contiguous copies of ``tensors``,
     on its route for (B, n) (or on ``route``, as a timing compares two
     routes), and return its (B, n) output; never the plain version.  The
     global and cluster routes' workspaces (``global_work_floats``,
     ``cluster_work_floats``) and, for the fused solve, kernel 1's partial
-    sums are allocated here."""
+    sums are allocated here, unless ``work`` is given: the global route's
+    workspace of a caller that keeps the factor there."""
     args = [t.to(_F32).contiguous() for t in tensors]
     B, n = sizes[0], sizes[-1]
     device = args[0].device
@@ -182,9 +188,10 @@ def _launch(name, wrapper, tensors, sizes, route=None):
     if route in ("register", "shared"):
         kernels.launch(name, _F32, (*args, out), sizes)
     else:
-        floats = (global_work_floats(B, n) if route == "global"
-                  else cluster_work_floats(name, B, n))
-        work = torch.empty(floats, dtype=_F32, device=device)
+        if work is None:
+            floats = (global_work_floats(B, n) if route == "global"
+                      else cluster_work_floats(name, B, n))
+            work = torch.empty(floats, dtype=_F32, device=device)
         # the cluster size follows from n in the source (0)
         extra = () if route == "global" else (0,)
         if name == "kkt_solve":
@@ -226,6 +233,51 @@ def fused_kkt_solve(Q, A, w, sigma, rhs):
 
 fused_kkt_solve.launches = collections.Counter()
 fused_kkt_solve.routes = collections.Counter()
+
+
+def fused_kkt_solver(Q, A, w, sigma):
+    """rhs -> ``fused_kkt_solve(Q, A, w, sigma, rhs)``, the same bits, for
+    the right-hand sides of one Newton solve, which share K (Q, A, w,
+    sigma as there, unchanged while the function is in use).  Where a CUDA tensor's (B, n) takes the global route, the first
+    call forms and factors K in a workspace that it keeps, and each later
+    call only substitutes on that factor: one launch of
+    ``kkt_resolve_global`` (counted, by dtype, in the Counter
+    ``fused_kkt_solver.launches``).  On the other routes, which keep no
+    float32 factor in global memory (the register and shared routes keep
+    none there, the cluster route's is in TF32 bits), and on the CPU,
+    every call is ``fused_kkt_solve``."""
+    if A.dim() != 3:
+        raise ValueError(f"fused_kkt_solver: A must be (B, m, n), got "
+                         f"{tuple(A.shape)}")
+    B, m, n = A.shape
+    _check("fused_kkt_solver", dict(Q=Q, A=A, w=w, sigma=sigma),
+           dict(Q=(B, n, n), A=(B, m, n), w=(B, m), sigma=(B,)))
+    if (Q.device.type == "cpu"
+            or kernel_route("kkt_solve", B, n, Q.device.index) != "global"):
+        return functools.partial(fused_kkt_solve, Q, A, w, sigma)
+    args = [t.to(_F32).contiguous() for t in (Q, A, w, sigma)]
+    work = torch.empty(global_work_floats(B, n), dtype=_F32, device=Q.device)
+    factored = False
+
+    def solve(rhs):
+        nonlocal factored
+        _check("fused_kkt_solver", dict(Q=Q, rhs=rhs),
+               dict(Q=(B, n, n), rhs=(B, n)))
+        if not factored:
+            dx = _launch("kkt_solve", fused_kkt_solve, (*args, rhs),
+                         (B, m, n), "global", work)
+            factored = True
+            return dx
+        dx = torch.empty((B, n), dtype=_F32, device=Q.device)
+        kernels.launch("kkt_resolve_global", _F32,
+                       (rhs.to(_F32).contiguous(), dx, work), (B, n))
+        fused_kkt_solver.launches[_F32] += 1
+        return dx
+
+    return solve
+
+
+fused_kkt_solver.launches = collections.Counter()
 
 
 def chol_solve_stacked(K, rhs):

@@ -32,7 +32,7 @@ import torch
 from .batched import all_finite, bwhere, dot, mtv, mv, norm2
 from .cg import pcg
 from .fused_formation import fused_formation
-from .fused_kkt import fused_kkt_solve, kernel_route
+from .fused_kkt import fused_kkt_solver, kernel_route
 
 
 def resolve_dtype(name, default: torch.dtype) -> torch.dtype:
@@ -269,7 +269,10 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
     ``kkt_dtype``, on a device for a float32 one): the whole solve
     (formation, Jacobi scaling, Cholesky, both substitutions) is one
     launch of the fused kernel (``ops/fused_kkt.py``), in float32 whatever
-    ``kkt_dtype`` says; the refinement sweeps re-invoke it.  Elsewhere the
+    ``kkt_dtype`` says.  The refinement's solves (Richardson sweeps or PCG
+    iterations) share that K: on the kernel's global route they substitute
+    on the first launch's factor (``fused_kkt_solver``), elsewhere they
+    launch the kernel again; both give the same bits.  Elsewhere the
     flag changes nothing.  ``kkt_mats``: (Q, A) already cast to float32,
     for a caller that keeps them across calls (``DenseOperator`` does);
     cast here when absent.
@@ -314,10 +317,11 @@ def newton_system_solve(Q, A, active, mu, sigma, rhs, proximal: bool,
         f32 = torch.float32
         sig_eff = sigma.to(f32) if proximal else torch.zeros_like(sigma, dtype=f32)
         Q32, A32 = kkt_mats if kkt_mats is not None else (Q.to(f32), A.to(f32))
-        w32 = w.to(f32)
+        # built per Newton solve, so that no kept factor outlives its K
+        solver = fused_kkt_solver(Q32, A32, w.to(f32), sig_eff)
 
         def ksolve(r):
-            return fused_kkt_solve(Q32, A32, w32, sig_eff, r.to(f32)).to(dt)
+            return solver(r.to(f32)).to(dt)
 
         dx = ksolve(rhs)
         if pcg_refine > 0:

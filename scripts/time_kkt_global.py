@@ -18,6 +18,18 @@ checkout has the cluster route and n has a cluster, the route not
 selected there is timed too (cluster or global, by the wrappers' own
 launch, ``chip_smoke.on_route``), so that one call compares the two.
 
+One Newton solve's three solves of one K (a first solve and the two
+refinement sweeps that ``refine_steps = 2`` makes) is then timed at
+``NEWTON_SHAPES`` (the benchmark cell's B = 1,024 and its compacted 256
+at m = 506, n = 505; phase 7d's one problem of n = 1,024 and the cluster
+route's limit there), on each route that can serve it: the global route
+as ``newton_system_solve`` runs it (one launch of kernel 3, then two
+substitutions on its kept factor, ``fused_kkt_solver``, built on the
+global route whatever B and n select), the global route with a launch
+for each solve, and where B clusters fit on the card at once the cluster
+route (a launch for each solve); the kept factor's dx held bit for bit
+to the launches'.  Each ``device_ms`` of the three solves.
+
 Each VARIANT.cu (a copy of csrc/kkt_solve_cluster.cu with a line
 changed), and ROOT's own kkt_solve_cluster.cu, is then built with
 formation.cu into a library of its own under build/kkt_cluster_variants/
@@ -44,6 +56,59 @@ HERE = Path(__file__).resolve().parents[1]
 LIMIT_SHAPES = ((15, 768, 512), (16, 768, 512), (7, 1536, 1024),
                 (8, 1536, 1024))
 VARIANT_SHAPES = ((1, 768, 512), (1, 1536, 1024))
+NEWTON_SHAPES = ((1024, 506, 505), (256, 506, 505), (1, 1536, 1024),
+                 (7, 1536, 1024))
+
+
+def refined_solves(cs, fk, route, args, kept):
+    """A function that makes one Newton solve's three solves of the K of
+    ``args`` on ``route`` (right-hand sides rhs, rhs reversed, rhs / 2):
+    with ``kept``, one launch and two substitutions on its factor (the
+    global route only), else a launch of kernel 3 each."""
+    Q, A, w, sigma, rhs = args
+    sides = (rhs, rhs.flip(1), 0.5 * rhs)
+    if not kept:
+        return lambda: [cs.on_route(fk, "kkt_solve", route,
+                                    (Q, A, w, sigma, r), tuple(A.shape))
+                        for r in sides]
+
+    def solves():
+        select, fk.kernel_route = fk.kernel_route, lambda *a: "global"
+        try:
+            solver = fk.fused_kkt_solver(Q, A, w, sigma)
+        finally:
+            fk.kernel_route = select
+        return [solver(r) for r in sides]
+    return solves
+
+
+def time_newton(cs, fk, kernels):
+    """The three solves of one Newton solve at NEWTON_SHAPES on each route
+    (module docstring), in turns."""
+    rows = []
+    for b, m, n in NEWTON_SHAPES:
+        args = cs.card_kkt_inputs((b, m, n), seed=n)
+        ways = {"global kept": refined_solves(cs, fk, "global", args, True),
+                "global each": refined_solves(cs, fk, "global", args, False)}
+        if b <= kernels.max_active_clusters(n):
+            ways["cluster each"] = refined_solves(cs, fk, "cluster", args,
+                                                  False)
+        same = all(torch.equal(x, y) for x, y in
+                   zip(ways["global kept"](), ways["global each"]()))
+        times = {way: [] for way in ways}
+        for way in list(ways) + list(reversed(ways)):
+            times[way].append(round(cs.device_ms(ways[way], calls=3,
+                                                 replays=3), 5))
+        row = dict(B=b, m=m, n=n, selected=fk.kernel_route("kkt_solve", b, n),
+                   same_bits=same, device_ms={w: min(t) for w, t in
+                                              times.items()}, runs=times)
+        print(f"time_kkt_global newton: {row}", flush=True)
+        rows.append(row)
+        if not same:
+            raise SystemExit(f"the kept factor gave other bits at {(b, m, n)}")
+        del args, ways
+        torch.cuda.empty_cache()
+    return rows
 
 
 def build_variant(kernels, src: Path, formation: Path, tag: str):
@@ -158,6 +223,8 @@ def main() -> int:
                            device_ms=min(times), runs=times)
                 print(f"time_kkt_global {root.name}: {row}", flush=True)
                 rows.append(row)
+    newton = (time_newton(cs, fk, kernels)
+              if hasattr(fk, "fused_kkt_solver") else [])
     timed = {}
     if clusters:
         sources = {"this source": kernels.CSRC / "kkt_solve_cluster.cu"}
@@ -165,7 +232,8 @@ def main() -> int:
                         for k, v in enumerate(variants)})
         timed = time_variants(cs, fk, ff, kernels, sources)
     print(cs.card_line())
-    print(json.dumps({"root": str(root), "rows": rows, "variants": timed}))
+    print(json.dumps({"root": str(root), "rows": rows, "newton": newton,
+                      "variants": timed}))
     return 0
 
 

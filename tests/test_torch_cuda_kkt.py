@@ -12,7 +12,9 @@ plain PyTorch versions on the same CUDA tensors to 1e-4 of max|dx| (the
 same recurrences summed in another order; 4e-6 found at the bench shape)
 on each of their three routes, failed problems must stay in their place,
 and solves through ``Settings.pallas_kkt`` and ``QPDO`` on the card must
-agree with the CPU.  The formation kernel's split route is held to its
+agree with the CPU.  A Newton solve with refinement keeps the global
+route's factor for its further right-hand sides: its dx must have the bits
+of a kernel launch for every solve, with the launches counted by route.  The formation kernel's split route is held to its
 plain version at the row-sharded shapes.
 """
 
@@ -24,6 +26,9 @@ import qpdo_tpu_torch as pt
 from qpdo_tpu_torch import kernels
 from qpdo_tpu_torch.ops import fused_formation as ff
 from qpdo_tpu_torch.ops import fused_kkt as fk
+from qpdo_tpu_torch.ops import linalg
+from qpdo_tpu_torch.ops.batched import all_finite, bwhere
+from qpdo_tpu_torch.ops.cg import pcg
 
 pytestmark = pytest.mark.cuda
 
@@ -143,6 +148,95 @@ def test_kkt_kernels_take_the_global_route_above_the_shared_limit(device):
         assert (fk.fused_kkt_solve.routes[routes[0]],
                 fk.chol_solve_stacked.routes[routes[1]]) == (before[0] + 1,
                                                              before[1] + 1)
+
+
+def _newton_args(device, B, m, n, seed):
+    """A Newton system as the solver hands it over, made on the card:
+    float64 state, the active rows and penalties mu of an iteration, the
+    proximal sigma and a right-hand side."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=device)
+    Mx = torch.randn((B, n, n), generator=g, **f64)
+    Q = Mx @ Mx.mT / n + 0.1 * torch.eye(n, **f64)
+    del Mx
+    A = torch.randn((B, m, n), generator=g, **f64)
+    active = (torch.rand((B, m), generator=g, **f64) < 0.5).double()
+    mu = 10.0 ** (-4.0 * torch.rand((B, m), generator=g, **f64))
+    sigma = torch.full((B,), 1e-6, **f64)
+    rhs = torch.randn((B, n), generator=g, **f64)
+    return Q, A, active, mu, sigma, rhs
+
+
+def _launch_counts(route):
+    return (fk.fused_kkt_solve.launches[torch.float32],
+            fk.fused_kkt_solve.routes[route],
+            fk.fused_kkt_solver.launches[torch.float32])
+
+
+def _kernel_each_solve(Q, A, active, mu, sigma, rhs, refine_steps=0,
+                       pcg_refine=0):
+    """``newton_system_solve``'s ``pallas_kkt`` branch (float32 KKT,
+    proximal) with a launch of the fused kernel for every solve."""
+    f32, dt = torch.float32, Q.dtype
+    w = active / mu
+    Q32, A32, w32, sig = Q.to(f32), A.to(f32), w.to(f32), sigma.to(f32)
+
+    def ksolve(r):
+        return fk.fused_kkt_solve(Q32, A32, w32, sig, r.to(f32)).to(dt)
+
+    dx = ksolve(rhs)                  # solved in the PCG branch too
+    if pcg_refine > 0:
+        dx, _, _ = pcg(linalg._exact_kmv(Q, A, w, sigma, True, dt, dt), rhs,
+                       ksolve, linalg._pcg_tol(dt), pcg_refine)
+    else:
+        dx = linalg._refine(ksolve,
+                            linalg._exact_kmv(Q, A, w, sigma, True, f32, dt),
+                            rhs, dx, refine_steps)
+    return bwhere(all_finite(dx), dx, torch.zeros_like(dx))
+
+
+# the cell's shapes (B = 1,024 and the compacted 256), chip_smoke.py's
+# phase 7b (B = 64, n = 300), and one shape of each other route
+@pytest.mark.parametrize("B,m,n,route", [
+    (1024, 506, 505, "global"), (256, 506, 505, "global"),
+    (64, 450, 300, "global"), (8, 150, 100, "register"),
+    (2, 300, 220, "shared"), (2, 768, 512, "cluster")])
+def test_newton_solve_keeps_the_global_factor_with_the_same_bits(
+        device, B, m, n, route):
+    """refine_steps = 2: one launch of kernel 3 and two substitutions on
+    its factor on the global route, three launches elsewhere; dx has the
+    bits of three launches either way."""
+    args = _newton_args(device, B, m, n, seed=n)
+    assert fk.kernel_route("kkt_solve", B, n) == route
+    before = _launch_counts(route)
+    want = _kernel_each_solve(*args, refine_steps=2)
+    after_want = _launch_counts(route)
+    got = linalg.newton_system_solve(*args, True, refine_steps=2,
+                                     kkt_dtype="float32", pallas_kkt=True)
+    after_got = _launch_counts(route)
+    assert [a - b for a, b in zip(after_want, before)] == [3, 3, 0]
+    kept = route == "global"
+    assert [a - b for a, b in zip(after_got, after_want)] == \
+        ([1, 1, 2] if kept else [3, 3, 0])
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    assert torch.equal(got, want)
+
+
+def test_pcg_refinement_keeps_the_global_factor_with_the_same_bits(device):
+    """pcg_refine > 0: each PCG iteration's preconditioner solve
+    substitutes on the first launch's factor, with the bits of a launch."""
+    args = _newton_args(device, 64, 450, 300, seed=17)
+    before = _launch_counts("global")
+    want = _kernel_each_solve(*args, pcg_refine=4)
+    after_want = _launch_counts("global")
+    got = linalg.newton_system_solve(*args, True, kkt_dtype="float32",
+                                     pallas_kkt=True, pcg_refine=4)
+    after_got = _launch_counts("global")
+    solves = after_want[0] - before[0]
+    assert solves >= 2 and after_want[2] == before[2]
+    assert [a - b for a, b in zip(after_got, after_want)] == \
+        [1, 1, solves - 1]
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

@@ -35,6 +35,7 @@ SOURCE_OF = {"formation": "formation.cu", "residuals": "residuals.cu",
              "kkt_solve": "kkt_solve.cu", "chol_solve": "kkt_solve.cu",
              "kkt_solve_global": "kkt_solve_large.cu",
              "chol_solve_global": "kkt_solve_large.cu",
+             "kkt_resolve_global": "kkt_solve_large.cu",
              "kkt_solve_cluster": "kkt_solve_cluster.cu",
              "chol_solve_cluster": "kkt_solve_cluster.cu",
              "ordered_sum": "ordered_sum.cu"}

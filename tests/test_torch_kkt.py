@@ -135,6 +135,19 @@ def test_nan_and_failed_factor_stay_in_their_problem():
     assert np.isfinite(jdx).all(axis=1).tolist() == finite.tolist()
 
 
+def test_fused_kkt_solver_is_the_fused_solve_for_each_rhs_on_the_cpu():
+    """One K, several right-hand sides: each call gives
+    ``fused_kkt_solve``'s bits; shapes that do not fit are refused."""
+    Q, A, w, sigma, rhs = [_t(a) for a in _kkt_inputs(3, 20, 30, seed=4)]
+    solve = tkkt.fused_kkt_solver(Q, A, w, sigma)
+    for r in (rhs, 2.0 * rhs.flip(1), rhs.double()):
+        assert torch.equal(solve(r), tkkt.fused_kkt_solve(Q, A, w, sigma, r))
+    with pytest.raises(ValueError, match="rhs must be"):
+        solve(rhs[:, :-1])
+    with pytest.raises(ValueError, match="w must be"):
+        tkkt.fused_kkt_solver(Q, A, w[:, :-1], sigma)
+
+
 def _spd(B, n, seed):
     rng = np.random.default_rng(seed)
     M = rng.standard_normal((B, n, n)).astype(np.float32)

@@ -10,10 +10,15 @@ block), several trailing tiles (64 x 64) and a ragged edge, one panel
 alone.  Each result is held to the plain version within 2e-5 of max|dx|
 (phase 6's tolerance), a second call to the same bits, the given K's
 lower triangle to go unread, a failed problem to its own problem, and the
-workspace (``fused_kkt.global_work_floats``) to its size.  Skipped where
-g++ is missing.
+workspace (``fused_kkt.global_work_floats``) to its size.  The third entry
+point, ``kkt_resolve_global``, substitutes for a new right-hand side on
+the factor that ``kkt_solve_global`` left in its workspace: it is held to
+the bits of a fresh ``kkt_solve_global`` call with that right-hand side,
+to leave the factor's part of the workspace as it found it, and to the
+same faults and the same workspace.  Skipped where g++ is missing.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,6 +54,28 @@ def _kkt(lib, Q, A, w, sigma, rhs, work=None):
     return dx
 
 
+def _resolve(lib, rhs, work):
+    """kkt_resolve_global on the factor in ``work``."""
+    B, n = rhs.shape
+    dx = torch.full((B, n), float("nan"))
+    rhs = rhs.contiguous()
+    assert lib.qpdo_kkt_resolve_global_f32(rhs.data_ptr(), dx.data_ptr(),
+                                           work.data_ptr(), B, n, None) == 0
+    return dx
+
+
+def _factor_bits(work, B, n):
+    """The factor's part of a workspace as bits: K's block (R), and dinv
+    and the diagonal of R of every problem."""
+    vec = work[B * n * n:fk.global_work_floats(B, n)].view(B, 4, n)
+    return [t.clone().view(torch.int32)
+            for t in (work[:B * n * n], vec[:, 0], vec[:, 2])]
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def _chol(lib, K, rhs, work=None):
     B, n, _ = K.shape
     dx = torch.full((B, n), float("nan"))
@@ -74,6 +101,49 @@ def test_both_entry_points_match_plain(lib, B, m, n):
     x = _chol(lib, Khat, bhat)
     assert _rel(x, fk.reference_chol_solve(Khat, bhat)) <= TOL
     assert _rel(x * dinv, dx) <= TOL
+
+
+@pytest.mark.parametrize("B,m,n", [(1, 105, 70), (1, 150, 100), (2, 30, 20),
+                                   (1, 40, 161)],
+                         ids=["three_panels", "two_column_ranges",
+                              "one_panel", "ragged_tiles"])
+def test_resolve_gives_the_bits_of_a_fresh_solve(lib, B, m, n):
+    """A factor made with one right-hand side, substituted on with
+    another: dx, and the whole workspace after it, have the bits of a
+    fresh kkt_solve_global call with the second; the factor's part is
+    left as it was, bit for bit."""
+    Q, A, w, sigma, rhs = _kkt_args(B, m, n, seed=n + 1)
+    rhs2 = torch.as_tensor(
+        np.random.default_rng(n).standard_normal((B, n)), dtype=torch.float32)
+    work = _work(B, n)
+    _kkt(lib, Q, A, w, sigma, rhs, work)
+    factor = _factor_bits(work, B, n)
+    got = _resolve(lib, rhs2, work)
+    fresh_work = _work(B, n)
+    want = _kkt(lib, Q, A, w, sigma, rhs2, fresh_work)
+    assert torch.isfinite(want).all() and _bits_equal(got, want)
+    assert all(torch.equal(a, b)
+               for a, b in zip(factor, _factor_bits(work, B, n)))
+    assert _bits_equal(work, fresh_work)
+
+
+def test_resolve_keeps_failures_in_their_problem(lib):
+    """Problem 0's factor failed (indefinite) and a NaN in problem 1's new
+    right-hand side: those two come back non-finite, as a fresh call
+    gives them, and problem 2 has the bits of the fresh call."""
+    n = 70
+    Q, A, w, sigma, rhs = _kkt_args(3, 105, n, seed=2)
+    Q = Q.clone()
+    Q[0] = -Q[0] - 10.0 * torch.eye(n)
+    rhs2 = rhs.flip(1).clone()
+    rhs2[1, 3] = float("nan")
+    work = _work(3, n)
+    _kkt(lib, Q, A, w, sigma, rhs, work)
+    got = _resolve(lib, rhs2, work)
+    want = _kkt(lib, Q, A, w, sigma, rhs2)
+    assert torch.isfinite(got).all(dim=1).tolist() == [False, False, True]
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert _bits_equal(got[2], want[2])
 
 
 def test_many_column_ranges_and_ragged_tiles(lib):
@@ -132,6 +202,9 @@ def test_the_workspace_is_enough_and_nothing_past_it_is_written(lib):
     Q, A, w, sigma, rhs = _kkt_args(B, m, n, seed=6)
     work = _work(B, n, guard=4096)
     dx = _kkt(lib, Q, A, w, sigma, rhs, work)
+    assert torch.isfinite(dx).all()
+    assert (work[-4096:] == 12345.0).all()
+    dx = _resolve(lib, 2.0 * rhs, work)       # on the factor left there
     assert torch.isfinite(dx).all()
     assert (work[-4096:] == 12345.0).all()
     assert fk.global_work_floats(B, n) == B * n * (n + 4)

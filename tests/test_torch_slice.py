@@ -124,7 +124,7 @@ def test_pallas_kkt_slice_matches_jax(monkeypatch):
     settings = qt.Settings(**PALLAS_KKT)
     calls = []
     solve = fused_kkt.fused_kkt_solve
-    monkeypatch.setattr("qpdo_tpu_torch.ops.linalg.fused_kkt_solve",
+    monkeypatch.setattr("qpdo_tpu_torch.ops.fused_kkt.fused_kkt_solve",
                         lambda *a: calls.append(1) or solve(*a))
     jr, tr = _solve_both(d, settings)
     np.testing.assert_array_equal(tr.info.status_val.numpy(),
